@@ -1,0 +1,257 @@
+"""Vision Transformer, eval forward (port of ``hairci/models/vit.py``).
+
+State-dict keys follow timm's layout (``cls_token``, ``pos_embed``,
+``patch_embed.proj``, ``blocks.N.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,
+mlp.fc2}``, ``norm``, ``fc_norm``), the layout ``export_vit`` writes, so JAX
+params load with ``strict=True`` through ``models.convert``.
+
+Numerics follow the Flax modules:
+  * Dense and conv layers compute in the module dtype. Their weights are
+    stored in it, which is the cast Flax applies to f32 params on every call.
+  * LayerNorm is pinned to f32 (params and output), eps 1e-6, with the
+    variance taken as E[x^2] - E[x]^2 like Flax.
+  * The residual stream is in the module dtype.
+  * GELU is exact erf in f32 and the tanh approximation in bf16.
+  * Attention is two matmuls and a softmax: scores come out in bf16 when the
+    module runs in bf16 and are scaled in bf16; softmax runs in f32 and is
+    cast back.
+Input images are NHWC, as in the JAX package.
+
+Not ported yet: token masking (``ids_keep``, ``token_mask``), ``remat``,
+LayerScale, the cross blocks and the multi-resolution pos-embed resize.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+# ---------------------------------------------------------------------------
+# positional embeddings
+# ---------------------------------------------------------------------------
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,
+                            cls_token: bool = False) -> np.ndarray:
+    """2-D sin-cos position embedding, (grid*grid [+1], D) float32."""
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.meshgrid(grid_w, grid_h)  # w goes first
+    grid = np.stack(grid, axis=0).reshape([2, 1, grid_size, grid_size])
+    emb_h = _sincos_1d(embed_dim // 2, grid[0])
+    emb_w = _sincos_1d(embed_dim // 2, grid[1])
+    pos_embed = np.concatenate([emb_h, emb_w], axis=1)
+    if cls_token:
+        pos_embed = np.concatenate(
+            [np.zeros([1, embed_dim], dtype=np.float32), pos_embed], axis=0
+        )
+    return pos_embed
+
+
+def _sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
+    if embed_dim % 2:
+        raise ValueError(f"sin-cos embedding needs an even width, got "
+                         f"{embed_dim}")
+    omega = np.arange(embed_dim // 2, dtype=np.float32) / (embed_dim / 2.0)
+    omega = 1.0 / 10000**omega
+    pos = pos.reshape(-1)
+    out = np.einsum("m,d->md", pos, omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf GELU in f32; the tanh approximation in bf16."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16
+                  else "none")
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """Flax Dense(dtype=...): input cast to the layer's compute dtype."""
+    return layer(x.to(layer.weight.dtype))
+
+
+class LayerNorm(nn.Module):
+    """Flax LayerNorm(epsilon=1e-6, dtype=float32): f32 params and output,
+    var = E[x^2] - E[x]^2 clipped at 0."""
+
+    eps = 1e-6
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _dense(self.fc2, gelu(_dense(self.fc1, x)))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with f32 softmax; scores in bf16 when the
+    module computes in bf16 (``hairci/models/vit.py:Attention``)."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, D = x.shape
+        head_dim = D // self.num_heads
+        qkv = _dense(self.qkv, x).reshape(B, N, 3, self.num_heads, head_dim)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each (B, H, N, hd)
+        if q.dtype != torch.bfloat16:
+            q, k = q.float(), k.float()
+        attn = torch.matmul(q, k.transpose(-2, -1)) * head_dim**-0.5
+        attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
+        out = torch.matmul(attn, v)
+        return _dense(self.proj, out.transpose(1, 2).reshape(B, N, D))
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn = Attention(dim, num_heads)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, 4 * dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, patch_size: int = 16, embed_dim: int = 768):
+        super().__init__()
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) -> (B, H*W/p^2, D), rows of patches in raster order."""
+        x = self.proj(x.permute(0, 3, 1, 2).to(self.proj.weight.dtype))
+        return x.flatten(2).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# the transformer
+# ---------------------------------------------------------------------------
+
+class VisionTransformer(nn.Module):
+    """ViT encoder. ``forward(x, pool=False)`` takes NHWC images and returns
+    the final-normed token sequence (B, N+1, D) in f32 with cls first, or
+    pooled (B, D) features when ``pool=True``: mean of patch tokens +
+    fc_norm when ``global_pool``, else the final-normed cls token.
+
+    Parameters are drawn from ``generator`` (lecun-normal dense and conv
+    kernels as in Flax, zero biases, N(0, 0.02) cls/mask tokens, fixed
+    sin-cos position table) in f32 on the CPU, then the dense and conv
+    weights are cast to ``dtype``; so one seed gives the same weights in
+    every dtype and on every device.
+    """
+
+    def __init__(self, patch_size: int = 16, embed_dim: int = 768,
+                 depth: int = 12, num_heads: int = 12, img_size: int = 224,
+                 dtype: torch.dtype = torch.float32,
+                 global_pool: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.dtype = dtype
+        self.global_pool = global_pool
+        grid = img_size // patch_size
+        self.num_patches = grid * grid
+        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        # the mask token is unused by the eval forward; it is kept so the
+        # key set matches the JAX tree (export_vit writes it)
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.pos_embed = nn.Parameter(
+            torch.from_numpy(get_2d_sincos_pos_embed(
+                embed_dim, grid, cls_token=True))[None],
+            requires_grad=False)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads) for _ in range(depth))
+        self.norm = LayerNorm(embed_dim)
+        if global_pool:
+            self.fc_norm = LayerNorm(embed_dim)
+        self._init_weights(generator)
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                m.to(dtype)
+
+    @torch.no_grad()
+    def _init_weights(self, generator: Optional[torch.Generator]) -> None:
+        for name, p in self.named_parameters():
+            if name in ("cls_token", "mask_token"):
+                nn.init.normal_(p, std=0.02, generator=generator)
+            elif name.endswith(".weight") and p.dim() > 1:
+                fan_in = p[0].numel()
+                # Flax lecun_normal: truncated at 2 sigma, rescaled to unit
+                # variance over the truncation
+                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+            elif name.endswith(".bias"):
+                nn.init.zeros_(p)
+
+    def forward(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
+        B = x.shape[0]
+        tokens = self.patch_embed(x.to(self.dtype))
+        if tokens.shape[1] != self.num_patches:
+            raise ValueError(f"{tokens.shape[1]} patches, model expects "
+                             f"{self.num_patches} (pos-embed resize is not "
+                             "ported)")
+        pos_embed = self.pos_embed
+        tokens = tokens + pos_embed[:, 1:].to(tokens.dtype)
+        cls = (self.cls_token + pos_embed[:, :1]).to(tokens.dtype)
+        tokens = torch.cat([cls.expand(B, -1, -1), tokens], dim=1)
+        for blk in self.blocks:
+            tokens = blk(tokens)
+        normed = self.norm(tokens)
+        if not pool:
+            return normed
+        if self.global_pool:
+            return self.fc_norm(tokens[:, 1:].mean(dim=1))
+        return normed[:, 0]
+
+
+VIT_CONFIGS = {
+    # name: (patch, dim, depth, heads)
+    "vit_tiny_patch16": (16, 192, 12, 3),
+    "vit_small_patch16": (16, 384, 12, 6),
+    "vit_base_patch16": (16, 768, 12, 12),
+    "vit_large_patch16": (16, 1024, 24, 16),
+    "vit_huge_patch14": (14, 1280, 32, 16),
+}
+
+
+def build_vit(name: str, img_size: int = 224,
+              dtype: torch.dtype = torch.float32, **kw) -> VisionTransformer:
+    if name not in VIT_CONFIGS:
+        raise ValueError(f"unknown vit {name!r}; choices: {sorted(VIT_CONFIGS)}")
+    p, d, depth, h = VIT_CONFIGS[name]
+    return VisionTransformer(patch_size=p, embed_dim=d, depth=depth,
+                             num_heads=h, img_size=img_size, dtype=dtype, **kw)
