@@ -7,15 +7,25 @@ Run from the root of a checkout, with no arguments:
 
 Phases, in order; any failure raises and exits non-zero:
   1. device  -- the card's name and power limit; TF32 off for matmul and conv.
-  2. build   -- nvcc builds every kernel of the serving path from csrc/.
+  2. build   -- nvcc builds every kernel from csrc/, one process per source,
+                all started together.
   3. kernels -- each kernel against its plain PyTorch twin on the card, at the
-                serving path's shapes, with median times of both.
+                shapes of the serving and training paths, with median times
+                of both.
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
                 search a 103,945-row gallery; the kernels' launch counters
                 must show that /search went through them.
   5. parity  -- the same weights in f32 on the CPU against bf16 on the card.
+  6. train   -- ResNet-50 SHAM at 224, bf16, B=64, seeded random weights,
+                through ``hairci_torch.cli.mainpretrain.main`` for 3 epochs
+                of 2 steps (warmup, mine, mined) on the repo's 64 hair crops
+                listed twice; the launch counters must show every step went
+                through the rotate kernel and every train-mode BN through the
+                stats kernel. Then 10 timed warmup and mined steps each.
+  7. train parity -- one warmup step of ResNet-50 at 224, B=8, f32, on the
+                card and on the CPU from identical weights, views and draws.
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -24,6 +34,7 @@ from __future__ import annotations
 
 import base64
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,6 +48,9 @@ DATASET = os.path.join(REPO, "HairPretraining", "data", "hair_regions")
 GALLERY_ROWS = 103_945   # the kNN gallery size of the README's benchmark
 WIDTH = 768              # ViT-B/16 embedding width
 SEED = 0
+TRAIN_BATCH = 64         # the SHAM step's batch on one card (config: 256)
+SIZE = 224
+KERNELS = ("topk", "rotate", "bn_stats")
 
 
 def _median_ms(fn, runs: int = 30, warmup: int = 5) -> float:
@@ -84,14 +98,18 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from hairci_torch.ops import _build
 
-    path, seconds, log = _build.build("topk")
-    print(f"build topk: {seconds:.2f} s -> "
-          f"{os.path.relpath(path, REPO)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(_build.build, KERNELS))
+    for name, (path, seconds, log) in zip(KERNELS, built):
+        print(f"build {name}: {seconds:.2f} s -> "
+              f"{os.path.relpath(path, REPO)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +151,7 @@ def _check_topk(q, g, k, atol, n_valid=None, exact=False) -> float:
     return err
 
 
-def phase_kernels() -> dict:
+def phase_topk() -> dict:
     import torch
 
     dev = torch.device("cuda")
@@ -186,6 +204,137 @@ def phase_kernels() -> dict:
     del g32, galleries
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err["f32"], "times": times}
+
+
+def resnet50_bn_shapes(rows: int, size: int) -> list:
+    """(M, C, count) of every train-mode BN of a ResNet-50 forward over
+    ``rows`` images of ``size`` px, in the order of the trunk."""
+    out, hw = [], size // 2
+    out.append((rows * hw * hw, 64, 1))                  # stem
+    hw //= 2                                             # max pool
+    for i, blocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** i
+        for j in range(blocks):
+            out.append((rows * hw * hw, f, 1))           # bn1, before stride
+            if i > 0 and j == 0:
+                hw //= 2
+            out.append((rows * hw * hw, f, 1))           # bn2
+            out.append((rows * hw * hw, 4 * f, 1))       # bn3
+            if j == 0:
+                out.append((rows * hw * hw, 4 * f, 1))   # downsample
+    shapes = {}
+    for m, c, n in out:
+        shapes[(m, c)] = shapes.get((m, c), 0) + n
+    return [(m, c, n) for (m, c), n in shapes.items()]
+
+
+def phase_rotate() -> dict:
+    import torch
+
+    from hairci_torch.ops.rotate import rotate_shear, rotate_shear_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B = TRAIN_BATCH
+    x = torch.randn(B, SIZE, SIZE, 3, device=dev, generator=gen)
+    # the +-15 degree grid, extremes included, and -2 atan(1/8): an exact
+    # half shift at odd heights
+    theta = torch.linspace(-15, 15, B, device=dev) * (math.pi / 180)
+    theta[B // 2] = -0.24870999
+    sigma = torch.rand(B, device=dev, generator=gen) * 0.4 + 0.1
+    err = {}
+    for blur in (None, sigma):
+        got = rotate_shear(x, theta, max_degrees=15.0, blur_sigma=blur)
+        want = rotate_shear_reference(x, theta, max_degrees=15.0,
+                                      blur_sigma=blur)
+        torch.cuda.synchronize()
+        key = "blur" if blur is not None else "plain"
+        err[key] = (got - want).abs().max().item()
+        if blur is None and not torch.equal(got, want):
+            raise AssertionError(f"rotate differs from its twin: {err[key]}")
+        if not err[key] <= 2e-6:
+            raise AssertionError(f"rotate+blur differs by {err[key]} > 2e-6")
+    odd = torch.randn(5, 33, 31, 3, device=dev, generator=gen)
+    if not torch.equal(rotate_shear(odd, theta[:5], max_degrees=15.0),
+                       rotate_shear_reference(odd, theta[:5],
+                                              max_degrees=15.0)):
+        raise AssertionError("rotate differs from its twin at 33 x 31")
+    times = {}
+    for key, blur in (("plain", None), ("blur", sigma)):
+        kern = _median_ms(lambda: rotate_shear(x, theta, max_degrees=15.0,
+                                               blur_sigma=blur))
+        twin = _median_ms(lambda: rotate_shear_reference(
+            x, theta, max_degrees=15.0, blur_sigma=blur))
+        times[key] = (kern, twin)
+        print(f"rotate {B}x{SIZE}x{SIZE}x3 f32 {key}: kernel {kern:.4f} ms, "
+              f"twin {twin:.4f} ms, max |err| {err[key]:.3g}")
+    print("rotate vs twin: ok (bitwise without blur)")
+    return {"max_abs_err": max(err.values()), "times": times}
+
+
+def _check_bn(x, atol_mean, atol_var) -> float:
+    import torch
+
+    from hairci_torch.ops.bn_stats import bn_stats, bn_stats_reference
+
+    s, q = bn_stats(x)
+    rs, rq = bn_stats_reference(x)
+    torch.cuda.synchronize()
+    n = x.shape[0]
+    mean, rmean = s / n, rs / n
+    var, rvar = q / n - mean * mean, rq / n - rmean * rmean
+    # the tolerances of tools/bn_stats_bench.py:122-125
+    if not (torch.allclose(mean, rmean, rtol=1e-4, atol=atol_mean)
+            and torch.allclose(var, rvar, rtol=1e-3, atol=atol_var)):
+        raise AssertionError(f"bn_stats differs from its twin at "
+                             f"{tuple(x.shape)} {x.dtype}")
+    return max((mean - rmean).abs().max().item(),
+               (var - rvar).abs().max().item())
+
+
+def phase_bn_stats() -> dict:
+    import torch
+
+    from hairci_torch.ops.bn_stats import bn_stats, bn_stats_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tool = torch.randn(512 * 56 * 56, 256, device=dev,
+                       generator=gen).bfloat16()
+    err = _check_bn(tool, 1e-4, 1e-3)
+    tool_k = _median_ms(lambda: bn_stats(tool))
+    tool_t = _median_ms(lambda: bn_stats_reference(tool))
+    print(f"bn_stats {tuple(tool.shape)} bf16 (the tool's shape): kernel "
+          f"{tool_k:.4f} ms, twin {tool_t:.4f} ms "
+          f"({tool.numel() * 2 / tool_k / 1e6:.0f} GB/s by the kernel)")
+    del tool
+    rows = 3 * TRAIN_BATCH
+    step_k = step_t = 0.0
+    # the trunk's and the head's BN inputs are all bf16 in the bf16 run
+    shapes = [(m, c, n, torch.bfloat16)
+              for m, c, n in resnet50_bn_shapes(rows, SIZE)]
+    shapes += [(rows, 2048, 1, torch.bfloat16),
+               (rows, 1024, 1, torch.bfloat16)]
+    for m, c, n, dtype in shapes:
+        x = (torch.randn(m, c, device=dev, generator=gen) * 2 + 1).to(dtype)
+        err = max(err, _check_bn(x, 1e-4, 1e-3))
+        kern = _median_ms(lambda: bn_stats(x), runs=20)
+        twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
+        step_k += n * kern
+        step_t += n * twin
+        print(f"bn_stats ({m}, {c}) {str(dtype)[6:]} x{n} per forward: "
+              f"kernel {kern:.4f} ms, twin {twin:.4f} ms")
+    print(f"bn_stats, the {sum(n for *_, n, _ in shapes)} train-mode BNs of "
+          f"one ResNet-50 SHAM forward at {rows} rows: kernel {step_k:.3f} ms"
+          f", twin {step_t:.3f} ms; vs twin: ok, max |err| {err:.3g}")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "step": (step_k, step_t),
+            "tool": (tool_k, tool_t)}
+
+
+def phase_kernels() -> dict:
+    return {"topk": phase_topk(), "rotate": phase_rotate(),
+            "bn_stats": phase_bn_stats()}
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +489,159 @@ def phase_parity(encoder, paths) -> None:
         raise AssertionError("card and CPU embeddings disagree")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the SHAM training slice through its entry point
+# ---------------------------------------------------------------------------
+
+def _write_manifest(workdir: str) -> str:
+    """The repo's 64 hair crops, each listed twice: 128 rows, 2 steps of 64
+    an epoch."""
+    names = sorted(n for n in os.listdir(DATASET) if n.endswith("_hair.png"))
+    if len(names) != 64:
+        raise AssertionError(f"expected 64 hair crops, found {len(names)}")
+    path = os.path.join(workdir, "train.csv")
+    with open(path, "w") as f:
+        f.write("id,class\n")
+        for rep in range(2):
+            f.writelines(f"{n},{i}\n" for i, n in enumerate(names))
+    return path
+
+
+def _step_times(recipe, state, images, stage, runs=10, warmup=3):
+    """Median host ms per ``train_step`` (each ends in a synchronize)."""
+    import torch
+
+    times = []
+    for i in range(warmup + runs):
+        gen = torch.Generator().manual_seed(1000 + i)
+        t0 = time.perf_counter()
+        recipe.train_step(state, images, gen, stage=stage, batch_id=0, k=7)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def phase_train(workdir: str, kern: dict) -> dict:
+    import torch
+
+    from hairci_torch.cli import mainpretrain
+    from hairci_torch.ops.bn_stats import bn_stats
+    from hairci_torch.ops.rotate import rotate_shear
+    from hairci_torch.ops.topk import topk_gallery_search
+
+    manifest = _write_manifest(workdir)
+    epochs, steps_per_epoch = 3, 128 // TRAIN_BATCH
+    argv = ["--mode", "SHAM", "--model", "resnet50", "--size", str(SIZE),
+            "--lr", "0.001", "--weight_decay", "1e-4", "--temp", "0.5",
+            "--ema", "0.99", "--k", "7", "--seed", "42",
+            "--batch_size", str(TRAIN_BATCH), "--epochs", str(epochs),
+            "--warm_up_epochs", "2", "--num_workers", "8",
+            "--train_annotation", manifest, "--img_dir", DATASET,
+            "--save_path", os.path.join(workdir, "out")]
+    torch.cuda.reset_peak_memory_stats()
+    rotate_shear.launches = bn_stats.launches = 0
+    topk_gallery_search.launches = 0
+    t0 = time.perf_counter()
+    trainer = mainpretrain.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"rotate_shear": rotate_shear.launches,
+                "bn_stats": bn_stats.launches,
+                "topk_gallery_search": topk_gallery_search.launches}
+    steps = epochs * steps_per_epoch
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"mainpretrain SHAM resnet50 {SIZE}px bf16 B={TRAIN_BATCH}: "
+          f"{steps} steps over {epochs} epochs in {seconds:.1f} s (model "
+          f"build and first-step warmup included); peak memory "
+          f"{peak:.2f} GiB; launches {launches}")
+    if launches["rotate_shear"] != steps:
+        raise AssertionError(f"rotate launches {launches['rotate_shear']} "
+                             f"!= {steps} steps")
+    if launches["bn_stats"] != 55 * steps:
+        raise AssertionError(f"bn_stats launches {launches['bn_stats']} != "
+                             f"55 x {steps} steps")
+
+    with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    log = os.path.join(trainer.save_path, "training_log.txt")
+    for m in metrics:
+        print(f"epoch {m['epoch']}: loss {m['loss']:.6f} contrastive "
+              f"{m['contrastive_loss']:.6f} triplet {m['triplet_loss']:.6f} "
+              f"mse {m['mse_loss']:.6f} violations {m['margin_violations']} "
+              f"{m['images_per_sec']:.1f} img/s (host clock, loader "
+              f"included)")
+    if [m["epoch"] for m in metrics] != list(range(epochs)) or not all(
+            math.isfinite(m[k]) for m in metrics for k in m):
+        raise AssertionError(f"metrics.jsonl: {metrics}")
+    if not (os.path.isfile(log) and os.path.isfile(os.path.join(
+            trainer.save_path, "model_ckpt_latest"))):
+        raise AssertionError("training_log.txt or model_ckpt_latest missing")
+    state, recipe = trainer.state, trainer.recipe
+    # the cache starts as zeros; mine writes one row of indices per batch
+    neg = state.neg_indices.cpu()
+    if not (neg.shape == (steps_per_epoch, TRAIN_BATCH)
+            and bool((neg != 0).any(1).all())
+            and bool(((neg >= 0) & (neg < TRAIN_BATCH)).all())):
+        raise AssertionError(f"neg_indices were not mined: {neg}")
+
+    images, _ = next(iter(trainer.train_loader))
+    images = torch.from_numpy(images).cuda()
+    step_ms = {stage: _step_times(recipe, state, images, stage)
+               for stage in ("warmup", "mined")}
+    for stage, ms in step_ms.items():
+        print(f"train_step {stage} B={TRAIN_BATCH}: median {ms:.2f} ms/step "
+              f"({TRAIN_BATCH * 1e3 / ms:.1f} img/s), host clock, each step "
+              f"synchronised")
+    k_ms = kern["rotate"]["times"]["blur"][0] + kern["bn_stats"]["step"][0]
+    print(f"the two kernels' share of a mined step: {k_ms:.3f} ms of "
+          f"{step_ms['mined']:.2f} ms ({100 * k_ms / step_ms['mined']:.2f} %,"
+          f" from the kernels' times at these shapes in phase 3)")
+    del trainer, state, images
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one training step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def phase_train_parity() -> None:
+    import numpy as np
+    import torch
+
+    from hairci_torch.ssl.sham import SHAMRecipe
+
+    B = 8
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8))
+    rec = SHAMRecipe(backbone="resnet50", img_size=SIZE, weight_decay=1e-4,
+                     num_batches=1, dtype=torch.float32)
+    draws = rec.draw(torch.Generator().manual_seed(SEED), B, 256, 256)
+    views = rec.transform.apply(images, draws["views"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = rec.create_state(SEED, B, torch.device(dev))
+        t0 = time.perf_counter()
+        m = rec.step_on_views(state, *(v.to(dev) for v in views), draws,
+                              "warmup")
+        loss = float(m["loss"])
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in state.online.named_parameters()}
+        out[dev] = (loss, grads)
+        print(f"train parity {dev}: warmup step ResNet-50 {SIZE}px B={B} f32 "
+              f"loss {loss:.7f} ({time.perf_counter() - t0:.1f} s)")
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    gmax = max((out["cuda"][1][n] - g).abs().max().item()
+               for n, g in out["cpu"][1].items())
+    print(f"train parity: relative loss difference {rel:.3g}, max |grad "
+          f"difference| {gmax:.3g} (clipped gradients)")
+    if not rel <= 1e-3:
+        raise AssertionError(f"card and CPU losses differ by {rel:.3g}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "hairci_torch")):
         raise SystemExit("chip_smoke: hairci_torch/ not found beside "
@@ -348,19 +650,38 @@ def main() -> int:
     device = phase_device()
     phase_build()
     kern = phase_kernels()
-    # the index is written inside the checkout and removed afterwards
+    # the index, manifest and run dir are written inside the checkout and
+    # removed afterwards
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as workdir:
         encoder, paths, launches = phase_serve(workdir)
-    phase_parity(encoder, paths)
-    print(json.dumps({"kernels": [{
-        "name": "topk_gallery_search", "route": "cuda",
-        "source": "hairci_torch/ops/csrc/topk.cu",
-        "replaces": "hairci/ops/topk_pallas.py:43",
-        "launches": launches,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["times"][(1, "f32")][0],
-        "plain_ms": kern["times"][(1, "f32")][1]}]}))
+        phase_parity(encoder, paths)
+        del encoder
+        train = phase_train(workdir, kern)
+    phase_train_parity()
+    rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
+    print(json.dumps({"kernels": [
+        {"name": "topk_gallery_search", "route": "cuda",
+         "source": "hairci_torch/ops/csrc/topk.cu",
+         "replaces": "hairci/ops/topk_pallas.py:43",
+         "launches": launches,
+         "max_abs_err": topk["max_abs_err"],
+         "ms": topk["times"][(1, "f32")][0],
+         "plain_ms": topk["times"][(1, "f32")][1]},
+        {"name": "rotate_shear", "route": "cuda",
+         "source": "hairci_torch/ops/csrc/rotate.cu",
+         "replaces": "hairci/ops/rotate_pallas.py:70",
+         "launches": train["launches"]["rotate_shear"],
+         "max_abs_err": rot["max_abs_err"],
+         "ms": rot["times"]["blur"][0],
+         "plain_ms": rot["times"]["blur"][1]},
+        {"name": "bn_stats", "route": "cuda",
+         "source": "hairci_torch/ops/csrc/bn_stats.cu",
+         "replaces": "tools/bn_stats_bench.py:28",
+         "launches": train["launches"]["bn_stats"],
+         "max_abs_err": bn["max_abs_err"],
+         "ms": bn["step"][0],
+         "plain_ms": bn["step"][1]}]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -1,4 +1,4 @@
-"""Checkpoint conversion into the port's timm-layout ViT.
+"""Checkpoint conversion into the port's modules.
 
 ``vit_state_dict_from_jax`` maps a JAX ``VisionTransformer`` param tree
 (nested dicts of numpy arrays) with the key mapping of
@@ -7,15 +7,22 @@ transposed, the patch conv goes HWIO -> OIHW. ``timm_vit_state_dict`` fills a
 timm/reference ViT state dict up to the port's key set the way
 ``convert_vit`` + ``merge_params`` do, so a ``.pth`` written by
 ``save_torch_state_dict(export_vit(...))`` and a timm ViT ``.pth`` load alike.
+
+``resnet_state_dict_from_jax`` and ``sham_state_dict_from_jax`` map a JAX
+``ResNet`` / ``SHAMModule`` (params and batch stats) with the key mapping of
+``export_resnet`` and ``export_sham2`` (torchvision layout; the SHAM head as
+``projection_head.layers.{0,1,3,4}``), with the backbone under ``backbone.``
+rather than the reference's ``nn.Sequential`` indices.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from hairci_torch.models import resnet
 from hairci_torch.models.vit import VisionTransformer
 
 
@@ -49,6 +56,63 @@ def vit_state_dict_from_jax(params: Mapping, depth: int
         if n in params:
             sd[f"{n}.weight"] = _t(params[n]["scale"])
             sd[f"{n}.bias"] = _t(params[n]["bias"])
+    return sd
+
+
+def _put_bn(sd: Dict[str, torch.Tensor], name: str, p: Mapping,
+            s: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+    sd[f"{name}.running_mean"] = _t(s["mean"])
+    sd[f"{name}.running_var"] = _t(s["var"])
+
+
+def _put_conv(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(np.transpose(np.asarray(p["kernel"]),
+                                           (3, 2, 0, 1)))  # HWIO -> OIHW
+
+
+def resnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                               stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                               bottleneck: bool = False
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX ResNet (params, batch_stats) -> the port's ``ResNet`` state dict
+    (load with ``strict=True``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _put_conv(sd, "conv1", params["conv_init"])
+    _put_bn(sd, "bn1", params["bn_init"], batch_stats["bn_init"])
+    block = "BottleneckBlock" if bottleneck else "BasicBlock"
+    gi = 0
+    for stage, n_blocks in enumerate(stage_sizes, start=1):
+        for b in range(n_blocks):
+            t = f"layer{stage}.{b}"
+            bp, bs = params[f"{block}_{gi}"], batch_stats[f"{block}_{gi}"]
+            for c in range(3 if bottleneck else 2):
+                _put_conv(sd, f"{t}.conv{c + 1}", bp[f"Conv_{c}"])
+                _put_bn(sd, f"{t}.bn{c + 1}", bp[f"BatchNorm_{c}"],
+                        bs[f"BatchNorm_{c}"])
+            if "conv_proj" in bp:
+                _put_conv(sd, f"{t}.downsample.0", bp["conv_proj"])
+                _put_bn(sd, f"{t}.downsample.1", bp["norm_proj"],
+                        bs["norm_proj"])
+            gi += 1
+    return sd
+
+
+def sham_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                             model: str = "resnet18"
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX ``SHAMModule`` (params, batch_stats) -> the port's ``SHAMModule``
+    state dict (load with ``strict=True``)."""
+    stages, block = resnet._STAGES[model]
+    sd = {f"backbone.{k}": v for k, v in resnet_state_dict_from_jax(
+        params["backbone"], batch_stats["backbone"], stages,
+        block is resnet.BottleneckBlock).items()}
+    hp, hs = params["projection_head"], batch_stats["projection_head"]
+    for i, (lin, bn) in enumerate((("0", "1"), ("3", "4"))):
+        sd[f"projection_head.layers.{lin}.weight"] = _t(
+            np.asarray(hp[f"dense{i}"]["kernel"]).T)
+        _put_bn(sd, f"projection_head.layers.{bn}", hp[f"bn{i}"], hs[f"bn{i}"])
     return sd
 
 

@@ -1,0 +1,55 @@
+"""Projection heads (port of ``hairci/models/heads.py:MLPHead``)."""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hairci_torch.models.norm import BatchNorm
+from hairci_torch.models.resnet import lecun_normal_
+
+
+class Linear(nn.Linear):
+    """Dense layer computing in ``dtype`` (flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, cin: int, cout: int, bias: bool,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, bias=bias)
+        self.dtype = dtype
+        with torch.no_grad():
+            lecun_normal_(self.weight, cin)
+            if bias:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        None if self.bias is None else self.bias.to(self.dtype))
+
+
+class MLPHead(nn.Module):
+    """Stack of (Dense [BN] [ReLU]) blocks, ``layers`` = (out_dim, use_bn,
+    use_act) each, in ``self.layers`` as the lightly head orders them
+    (Linear, BN, ReLU, ...): the SimCLR head's keys are
+    ``layers.{0,1,3,4}``, as in ``export_sham2``. Its BN is the port's
+    ``BatchNorm`` on the (B, D) input, so the stats kernel covers it too, in
+    the centred form of the ``flax.linen.BatchNorm`` the JAX head uses."""
+
+    def __init__(self, in_dim: int, layers: Sequence[Tuple[int, bool, bool]],
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        mods = []
+        for dim, use_bn, use_act in layers:
+            mods.append(Linear(in_dim, dim, bias=not use_bn, dtype=dtype))
+            if use_bn:
+                mods.append(BatchNorm(dim, dtype=dtype, centered=True))
+            if use_act:
+                mods.append(nn.ReLU())
+            in_dim = dim
+        self.layers = nn.Sequential(*mods)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers(x.to(self.dtype)).float()

@@ -1,0 +1,75 @@
+"""BatchNorm in the flax convention (port of ``hairci/models/norm.py``).
+
+Every reduction and the normalise run on a 2-D ``(N*H*W, C)`` view of a
+channel-last input; for a ``channels_last`` NCHW tensor that view is free.
+Train mode takes the f32 sum and sum of squares from ``ops.bn_stats`` (the
+CUDA kernel on a card, its twin on the CPU) and forms mean = E[x] and the
+*biased* var = E[x^2] - E[x]^2. The running stats follow flax:
+``m * old + (1 - m) * new`` with m = 0.9 and the biased var -- the stock
+``nn.BatchNorm2d`` keeps the unbiased var with momentum 0.1. There is no
+``num_batches_tracked`` buffer: the JAX state has none to convert.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from hairci_torch.ops.bn_stats import BNStats
+
+
+class BatchNorm(nn.Module):
+    """Flax-compatible BatchNorm over the last axis of a 2-D input, or the
+    channel axis of a 4-D NCHW input (channels_last keeps it copy-free).
+
+    The output is ``x * w + b`` in f32 with w = scale / sqrt(var + eps) and
+    b = bias - mean * w, cast to ``dtype`` (``hairci/models/norm.py``). With
+    ``centered`` it is ``(x - mean) * w + bias`` with the var clamped at 0,
+    the form of ``flax.linen.BatchNorm``, which the JAX projection head uses:
+    on a small batch of similar rows the two differ by far more than f32
+    rounding, since x * w - mean * w cancels.
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 zero_init: bool = False, centered: bool = False):
+        super().__init__()
+        self.centered = centered
+        self.momentum = momentum
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(num_features) if zero_init
+                                   else torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.weight.shape[0]
+        nhwc = x.permute(0, 2, 3, 1) if x.dim() == 4 else x
+        x2 = nhwc.reshape(-1, c)
+        if self.training:
+            s, sq = BNStats.apply(x2.contiguous())
+            n = x2.shape[0]
+            mean = s / n
+            var = sq / n - mean * mean
+            if self.centered:
+                var = torch.clamp(var, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        if self.centered:
+            w = torch.rsqrt(var + self.eps) * self.weight
+            y = (x2.float() - mean) * w + self.bias
+        else:
+            w = torch.reciprocal(torch.sqrt(var + self.eps)) * self.weight
+            y = x2.float() * w + (-mean * w + self.bias)
+        y = y.to(self.dtype).reshape(nhwc.shape)
+        return y.permute(0, 3, 1, 2) if x.dim() == 4 else y
+
+    def extra_repr(self) -> str:
+        return (f"{self.weight.shape[0]}, momentum={self.momentum}, "
+                f"eps={self.eps}, dtype={self.dtype}")

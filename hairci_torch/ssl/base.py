@@ -1,0 +1,38 @@
+"""SSL recipe registry (port of ``hairci/ssl/base.py``).
+
+A recipe owns its modules and exposes ``create_state``, ``train_step`` and
+``extract_features``; ``build_recipe`` is keyed on the reference ``--mode``
+strings. Only SHAM is ported so far.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+
+def backbone_features(backbone: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Pooled features of a backbone (the ResNets return them directly)."""
+    return backbone(x)
+
+
+RECIPES: Dict[str, Any] = {}
+
+
+def register_recipe(name: str):
+    def deco(cls):
+        RECIPES[name] = cls
+        cls.name = name
+        return cls
+    return deco
+
+
+def build_recipe(mode: str, **kwargs):
+    from hairci_torch.ssl import sham as _sham  # noqa: F401  (registers)
+
+    if mode not in RECIPES:
+        raise NotImplementedError(
+            f"mode {mode!r} is not yet ported; ported: {sorted(RECIPES)}")
+    return RECIPES[mode](**kwargs)

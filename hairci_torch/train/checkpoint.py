@@ -1,0 +1,63 @@
+"""Checkpoints (port of ``hairci/train/checkpoint.py``).
+
+A checkpoint is one ``torch.save`` file holding the online and EMA module
+states, the optimizer, the mined-negative cache, the step and the epoch:
+everything resume needs, EMA and cache included. The cadence follows the
+JAX engine: ``model_ckpt_<epoch>`` every 50 epochs plus ``model_ckpt_latest``
+each epoch. JAX's Orbax directories cannot be read here (no JAX).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Optional
+
+import torch
+
+from hairci_torch.train.state import TrainState
+
+PERIODIC_RE = re.compile(r"model_ckpt_(\d+)$")
+
+
+def save_checkpoint(save_path: str, name: str, state: TrainState,
+                    epoch: int) -> str:
+    """Write ``<save_path>/<name>`` atomically; returns its path."""
+    path = os.path.abspath(os.path.join(save_path, name))
+    tmp = path + ".tmp"
+    torch.save({"online": state.online.state_dict(),
+                "ema": state.ema.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "neg_indices": state.neg_indices,
+                "step": state.step,
+                "epoch": epoch}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_checkpoint(path: str, state: TrainState) -> int:
+    """Load ``path`` into ``state`` in place; returns the saved epoch."""
+    device = state.neg_indices.device
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    state.online.load_state_dict(ckpt["online"])
+    state.ema.load_state_dict(ckpt["ema"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.neg_indices.copy_(ckpt["neg_indices"])
+    state.step = int(ckpt["step"])
+    return int(ckpt["epoch"])
+
+
+def get_latest_checkpoint(folder: str) -> Optional[str]:
+    """``model_ckpt_latest`` if present, else the highest-numbered periodic
+    checkpoint, else None."""
+    if not os.path.isdir(folder):
+        return None
+    latest = os.path.join(folder, "model_ckpt_latest")
+    if os.path.isfile(latest):
+        return latest
+    best, best_n = None, -1
+    for entry in os.listdir(folder):
+        m = PERIODIC_RE.match(entry)
+        if m and int(m.group(1)) > best_n:
+            best, best_n = os.path.join(folder, entry), int(m.group(1))
+    return best

@@ -1,0 +1,49 @@
+"""Optimizer (port of ``hairci/train/optim.py``): Adam(W) with weight decay
+on every parameter except biases and 1-D parameters (BN scales and biases),
+after clipping by global norm in the optax form."""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional
+
+import torch
+from torch import nn
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """True where weight decay applies (``decay_mask``)."""
+    return not (name.split(".")[-1] == "bias" or p.dim() <= 1)
+
+
+def make_optimizer(module: nn.Module, learning_rate: float,
+                   weight_decay: float = 0.0,
+                   betas=(0.9, 0.999)) -> torch.optim.Optimizer:
+    """``optax.adamw(mask=decay_mask)`` or ``optax.adam``: decoupled decay,
+    eps 1e-8 outside the square root."""
+    named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
+    groups = [{"params": [p for n, p in named if decays(n, p)],
+               "weight_decay": weight_decay or 0.0},
+              {"params": [p for n, p in named if not decays(n, p)],
+               "weight_decay": 0.0}]
+    return torch.optim.AdamW(groups, lr=learning_rate, betas=tuple(betas),
+                             eps=1e-8)
+
+
+@torch.no_grad()
+def clip_grad_global_norm_(params: Iterable[torch.Tensor],
+                           max_norm: float) -> Optional[torch.Tensor]:
+    """``optax.clip_by_global_norm``: g <- (g / |g|) * max_norm when
+    |g| >= max_norm, with no eps added to the norm (unlike
+    ``torch.nn.utils.clip_grad_norm_``). Returns |g|; never waits for the
+    card."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return None
+    norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    div = torch.where(keep, one, norm)
+    mul = torch.where(keep, one, torch.full_like(norm, max_norm))
+    for g in grads:
+        g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
+    return norm

@@ -1,0 +1,36 @@
+"""Train state (port of ``hairci/train/state.py``).
+
+The JAX pytree becomes one mutable object: the online module, its EMA
+teacher copy, the optimizer, the mined-negative cache and the step count.
+The port updates it in place (the JAX step returns a new state), which keeps
+one copy of the weights and optimizer moments on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass
+class TrainState:
+    online: nn.Module
+    ema: nn.Module
+    optimizer: torch.optim.Optimizer
+    # staged hard-negative cache: (num_batches, B) neighbour indices
+    neg_indices: Optional[torch.Tensor] = None
+    step: int = 0
+
+
+@torch.no_grad()
+def ema_update(ema: nn.Module, online: nn.Module, momentum: float) -> None:
+    """ema <- ema * m + online * (1 - m), over the parameters AND the BN
+    buffers (lightly ``update_momentum``; ``ema_update`` of both trees)."""
+    e = list(ema.parameters()) + list(ema.buffers())
+    o = list(online.parameters()) + list(online.buffers())
+    # multi-tensor ops: a few launches for the whole model, not three each
+    torch._foreach_mul_(e, momentum)
+    torch._foreach_add_(e, torch._foreach_mul(o, 1.0 - momentum))

@@ -237,12 +237,17 @@ def test_port_imports_no_jax():
 
 
 def test_port_pulls_in_no_jax_at_runtime():
+    # nor yaml, which the training CLI imports only for --config
     code = ("import sys\n"
             "import hairci_torch.serve.api, hairci_torch.cli.retrieval\n"
             "import hairci_torch.retrieval.encoders, hairci_torch.ops._build\n"
+            "import hairci_torch.cli.mainpretrain, hairci_torch.train.engine\n"
+            "import hairci_torch.ssl.sham, hairci_torch.ops.rotate\n"
+            "import hairci_torch.ops.bn_stats\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
-            "assert not bad, bad\n")
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml'))\n"
+            "assert not bad, bad\n"
+            "assert not any(m.startswith('hairci.utils') for m in sys.modules)\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
 

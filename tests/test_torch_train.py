@@ -1,0 +1,171 @@
+"""The port's SHAM training path around the step, against the JAX
+package: the losses, the negative samplers, the staging rules, the config
+parser, and ``python -m hairci_torch.cli.mainpretrain`` with its log format
+and resume."""
+
+import json
+import re
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hairci.losses.contrastive import margin_violation_stats as j_viol
+from hairci.losses.contrastive import nt_xent_loss as j_ntx
+from hairci.losses.contrastive import triplet_margin_loss as j_trip
+from hairci.ssl.sham import SHAMRecipe as JaxSHAMRecipe
+from hairci.ssl.sham import derangement as j_derangement
+from hairci.ssl.sham import kth_neighbor_indices as j_kth
+from hairci.train.engine import Trainer as JaxTrainer
+from hairci.utils.config import parse_pretrain_args as jax_parse
+from hairci_torch.cli import mainpretrain
+from hairci_torch.losses.contrastive import (
+    margin_violation_stats,
+    nt_xent_loss,
+    triplet_margin_loss,
+)
+from hairci_torch.ssl.sham import (
+    SHAMRecipe,
+    derangement,
+    kth_neighbor_indices,
+)
+from hairci_torch.utils.config import parse_pretrain_args
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ---------------------------------------------------------------------------
+# losses and negative samplers
+# ---------------------------------------------------------------------------
+
+def test_losses_match_jax():
+    rng = np.random.default_rng(0)
+    a, p, n = (rng.normal(size=(6, 16)).astype(np.float32) for _ in range(3))
+    tol = dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        nt_xent_loss(_t(p), _t(a), 0.5).numpy(), np.asarray(j_ntx(p, a, 0.5)),
+        **tol)
+    np.testing.assert_allclose(
+        triplet_margin_loss(_t(a), _t(p), _t(n), 0.7).numpy(),
+        np.asarray(j_trip(a, p, n, 0.7)), **tol)
+    ours = margin_violation_stats(_t(a), _t(p), _t(n), 0.5)
+    ref = j_viol(a, p, n, 0.5)
+    for o, r in zip(ours[:2], ref[:2]):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **tol)
+    assert int(ours[2]) == int(ref[2])
+    # the SHAM MSE term on normalised embeddings
+    mse = torch.mean(torch.square(_t(p) - _t(a)))
+    np.testing.assert_allclose(mse.numpy(),
+                               np.asarray(jnp.mean(jnp.square(p - a))), **tol)
+
+
+def test_negative_samplers_match_jax():
+    key = jax.random.key(3)
+    perm = jax.random.permutation(key, 7)
+    assert torch.equal(derangement(_t(perm)),
+                       _t(j_derangement(key, 7)).long())
+    # duplicated rows tie: the stable sort keeps the lower index first
+    rng = np.random.default_rng(1)
+    f = rng.normal(size=(5, 8)).astype(np.float32)
+    f = np.concatenate([f, f[:3]])
+    for k in range(1, 9):
+        assert torch.equal(kth_neighbor_indices(_t(f), k),
+                           _t(j_kth(jnp.asarray(f), jnp.asarray(k))).long())
+
+
+def test_staging_rules_match_jax():
+    for abl in ("None", "randomly"):
+        ours = SHAMRecipe(warm_up_epochs=3, ablation=abl)
+        ref = JaxSHAMRecipe(warm_up_epochs=3, ablation=abl)
+        assert [ours.stage_for_epoch(e) for e in range(6)] == \
+            [ref.stage_for_epoch(e) for e in range(6)]
+    for v in (0.0, 3.0, 7.5, 31.0, 64.0):
+        assert SHAMRecipe.adapt_k(v, 64) == JaxSHAMRecipe.adapt_k(v, 64)
+
+
+# ---------------------------------------------------------------------------
+# config and CLI
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--mode", "SHAM", "--model", "resnet50", "--epochs=7", "--k", "3"],
+    ["--config", str(REPO / "configs" / "pretrain_sham.yaml")],
+    ["--config", str(REPO / "configs" / "pretrain_sham.yaml"),
+     "--batch_size", "64", "--ablation", "No masked positive"],
+])
+def test_config_parser_matches_jax(argv):
+    ours, ref = vars(parse_pretrain_args(argv)), vars(jax_parse(argv))
+    assert ours.pop("device") == "cuda" and ref.pop("device") == "tpu"
+    assert ours == ref
+
+
+def _manifest(tmp_path, n=8):
+    img_dir = REPO / "HairPretraining" / "data" / "hair_regions"
+    rows = [f"{i:06d}_hair.png,{i % 3}" for i in range(n)]
+    csv = tmp_path / "train.csv"
+    csv.write_text("id,class\n" + "\n".join(rows) + "\n")
+    return csv, img_dir
+
+
+def test_cli_trains_logs_and_resumes(tmp_path):
+    csv, img_dir = _manifest(tmp_path)
+    argv = ["--mode", "SHAM", "--model", "resnet18", "--size", "32",
+            "--device", "cpu", "--dtype", "float32", "--batch_size", "4",
+            "--epochs", "3", "--warm_up_epochs", "2", "--k", "3",
+            "--num_workers", "1", "--train_annotation", str(csv),
+            "--img_dir", str(img_dir), "--save_path", str(tmp_path / "out")]
+    subprocess.run([sys.executable, "-m", "hairci_torch.cli.mainpretrain",
+                    *argv], cwd=REPO, check=True, timeout=300,
+                   env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1",
+                        "HOME": str(tmp_path)})
+    run = tmp_path / "out" / "SHAM_resnet18_ep3_bs4_lr0.001_temp0.5_warm2_ema0.99_k3"
+    lines = (run / "metrics.jsonl").read_text().splitlines()
+    metrics = [json.loads(s) for s in lines]
+    assert [m["epoch"] for m in metrics] == [0, 1, 2]
+    assert all(np.isfinite(m["loss"]) for m in metrics)
+    assert (run / "model_ckpt_latest").is_file()
+
+    # the log line is the JAX engine's, byte for byte
+    log = (run / "training_log.txt").read_text()
+    fake = types.SimpleNamespace(args=types.SimpleNamespace(mode="SHAM"),
+                                 metrics_file=str(tmp_path / "j.jsonl"),
+                                 log_file=str(tmp_path / "j.txt"))
+    total_k = [3, SHAMRecipe.adapt_k(metrics[0]["margin_violations"], 4)]
+    for m, k in zip(metrics, total_k + total_k[-1:]):
+        JaxTrainer._log_epoch(fake, m["epoch"], m, k)
+    assert log == (tmp_path / "j.txt").read_text()
+    assert re.search(r"Margin violations: [\d.]+, Total k: \d+\n$", log)
+
+    # resume from model_ckpt_latest: the next epoch is 3
+    ckpt = torch.load(run / "model_ckpt_latest", weights_only=True)
+    assert ckpt["epoch"] == 2 and ckpt["step"] == 6
+    # (a new --epochs names a new run dir; the checkpoint folder is given)
+    trainer = mainpretrain.main(argv + ["--continue_training",
+                                        "--checkpoint_folder", str(run),
+                                        "--epochs", "4"])
+    assert trainer.start_epoch == 3 and trainer.state.step == 8
+    resumed = [json.loads(s) for s in Path(
+        trainer.save_path, "metrics.jsonl").read_text().splitlines()]
+    assert [m["epoch"] for m in resumed] == [3]
+
+
+def test_cli_refuses_what_is_not_ported(tmp_path):
+    csv, img_dir = _manifest(tmp_path)
+    base = ["--device", "cpu", "--train_annotation", str(csv), "--img_dir",
+            str(img_dir), "--save_path", str(tmp_path)]
+    with pytest.raises(SystemExit, match="not yet ported"):
+        mainpretrain.main(base + ["--mode", "simclr"])
+    with pytest.raises(SystemExit, match="not yet ported"):
+        mainpretrain.main(base + ["--mode", "SHAM", "--S2R2"])
