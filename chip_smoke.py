@@ -10,8 +10,10 @@ Phases, in order; any failure raises and exits non-zero:
   2. build   -- nvcc builds every kernel from csrc/, one process per source,
                 all started together.
   3. kernels -- each kernel against its plain PyTorch twin on the card, at the
-                shapes of the serving and training paths, with median times
-                of both.
+                shapes of the serving, training and evaluation paths, with
+                median times of both, the least time the card could take
+                for the same bytes and operations, and, where one PyTorch
+                call computes the same function, that call's time.
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
@@ -23,8 +25,23 @@ Phases, in order; any failure raises and exits non-zero:
                 of 2 steps (warmup, mine, mined) on the repo's 64 hair crops
                 listed twice; the launch counters must show every step went
                 through the rotate kernel and every train-mode BN through the
-                stats kernel. Then 10 timed warmup and mined steps each.
-  7. train parity -- one warmup step of ResNet-50 at 224, B=8, f32, on the
+                stats kernel, and every forward without gradient (the EMA
+                teacher's) through the conv3x3 kernel. Then 10 timed warmup
+                and mined steps each.
+  7. knn     -- ``hairci_torch.cli.knn_classification.main`` on the
+                checkpoint phase 6 wrote: ResNet-50 at 224, bf16, batches of
+                48 (the last of each loader padded), the 128-row manifest as
+                train and the 64 images as test, all seven ks; every eval
+                forward must launch the conv3x3 kernel 3 times and the stats
+                kernel never; unit-norm features; self-retrieval at k=1.
+  8. knn at full size -- ``knn_predict_multi`` on seeded clustered features,
+                103,945 x 2048 gallery, 61 classes, 4096 queries, the seven
+                ks; 512 queries against the port on the CPU; exact ties by
+                index; top-k + tie repair against a stable sort of the scores.
+  9. embed   -- ResNet-50 eval forward at 224, bf16, batch 64: with the
+                conv3x3 kernel and with those three convs sent to F.conv2d;
+                bf16 on the card against f32 on the CPU.
+ 10. train parity -- one warmup step of ResNet-50 at 224, B=8, f32, on the
                 card and on the CPU from identical weights, views and draws.
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -50,7 +67,20 @@ WIDTH = 768              # ViT-B/16 embedding width
 SEED = 0
 TRAIN_BATCH = 64         # the SHAM step's batch on one card (config: 256)
 SIZE = 224
-KERNELS = ("topk", "rotate", "bn_stats")
+KERNELS = ("topk", "rotate", "bn_stats", "conv3x3")
+KNN_BATCH = 64           # the embed batch of the full-width kNN phases
+CLI_BATCH = 48           # the batch the kNN CLI is driven at (pads a last one)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM: HBM3
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32
+                                             # FMAs outside the tensor cores
+
+
+def _bound(nbytes: float, flops: float, kind: str) -> tuple:
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate and the operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _median_ms(fn, runs: int = 30, warmup: int = 5) -> float:
@@ -203,7 +233,11 @@ def phase_topk() -> dict:
                   f"kernel {kern:.4f} ms, twin {twin:.4f} ms")
     del g32, galleries
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err["f32"], "times": times}
+    # Q=1, f32 gallery: the gallery and the query read once, k scores and
+    # indices written; one f32 FMA per gallery value
+    bound = _bound(4 * (GALLERY_ROWS + 1) * WIDTH + 5 * 12,
+                   2.0 * GALLERY_ROWS * WIDTH, "f32")
+    return {"max_abs_err": max_err["f32"], "times": times, "bound": bound}
 
 
 def resnet50_bn_shapes(rows: int, size: int) -> list:
@@ -269,7 +303,10 @@ def phase_rotate() -> dict:
         print(f"rotate {B}x{SIZE}x{SIZE}x3 f32 {key}: kernel {kern:.4f} ms, "
               f"twin {twin:.4f} ms, max |err| {err[key]:.3g}")
     print("rotate vs twin: ok (bitwise without blur)")
-    return {"max_abs_err": max(err.values()), "times": times}
+    # with blur: the batch read and written once, angles and sigmas read;
+    # per value two 3-tap passes of 5 operations each
+    bound = _bound(2 * x.numel() * 4 + 2 * B * 4, 10.0 * x.numel(), "f32")
+    return {"max_abs_err": max(err.values()), "times": times, "bound": bound}
 
 
 def _check_bn(x, atol_mean, atol_var) -> float:
@@ -328,18 +365,180 @@ def phase_bn_stats() -> dict:
           f"one ResNet-50 SHAM forward at {rows} rows: kernel {step_k:.3f} ms"
           f", twin {step_t:.3f} ms; vs twin: ok, max |err| {err:.3g}")
     torch.cuda.empty_cache()
+    # one forward's BN inputs read once (bf16), two f32 vectors written per
+    # launch; an add and a fused multiply-add per value
+    values = sum(n * m * c for m, c, n, _ in shapes)
+    bound = _bound(2 * values + sum(n * 8 * c for _, c, n, _ in shapes),
+                   3.0 * values, "f32")
     return {"max_abs_err": err, "step": (step_k, step_t),
-            "tool": (tool_k, tool_t)}
+            "tool": (tool_k, tool_t), "bound": bound}
+
+
+def _conv_inputs(gen, B, H, W, cin, cout, dtype, bias=True):
+    """x ~ N(0, 1) channels_last, w ~ 0.05 N(0, 1) (the TPU tool's data) and
+    a non-zero bias."""
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.randn(B, H, W, cin, device=dev, generator=gen).to(dtype)
+    w = 0.05 * torch.randn(cout, cin, 3, 3, device=dev, generator=gen)
+    b = 0.1 * torch.randn(cout, device=dev, generator=gen) if bias else None
+    return x.permute(0, 3, 1, 2), w, b
+
+
+def _check_conv(x, w, b, stats) -> dict:
+    """Kernel against the twin on one input. f32: |err| <= 1e-5 max|ref|
+    (two f32 summation orders over 9 * Cin terms). bf16: each output within
+    one bf16 ulp of the twin's (|err| <= 2^-7 |ref| + 1e-6 max|ref|) and at
+    least 99.9 % of them bitwise equal (both round one f32 sum; they differ
+    only where the two sums straddle a rounding boundary). Sums: rtol 1e-5,
+    with atol 1e-5 of the largest channel's."""
+    import torch
+
+    from hairci_torch.ops.conv3x3 import conv3x3, conv3x3_reference
+
+    got = conv3x3(x, w, b, stats=stats)
+    want = conv3x3_reference(x, w, b, stats=stats)
+    torch.cuda.synchronize()
+    y, ref = (got[0], want[0]) if stats else (got, want)
+    tag = f"{tuple(x.shape)} -> {w.shape[0]} {str(x.dtype)[6:]}"
+    if (y.shape != ref.shape or y.dtype != x.dtype or not y.is_contiguous(
+            memory_format=torch.channels_last)):
+        raise AssertionError(f"conv3x3 output {tuple(y.shape)} {y.dtype} "
+                             f"strides {y.stride()} at {tag}")
+    diff = (y.float() - ref.float()).abs()
+    top = ref.float().abs().max().item()
+    err = diff.max().item()
+    equal = (y == ref).float().mean().item()
+    if x.dtype == torch.float32:
+        ok = err <= 1e-5 * top
+    else:
+        ok = bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-6 * top).all()
+                  ) and equal >= 0.999
+    if not ok:
+        raise AssertionError(f"conv3x3 differs from its twin at {tag}: max "
+                             f"|err| {err:.3g} of {top:.3g}, {100 * equal:.4f}"
+                             " % bitwise equal")
+    if stats:
+        for name, a, r in (("sum", got[1], want[1]), ("sumsq", got[2],
+                                                      want[2])):
+            if not torch.allclose(a, r, rtol=1e-5,
+                                  atol=1e-5 * r.abs().max().item()):
+                raise AssertionError(
+                    f"conv3x3 {name} differs from its twin at {tag}: "
+                    f"{(a - r).abs().max().item():.3g} of "
+                    f"{r.abs().max().item():.3g}")
+    return {"err": err, "equal": equal}
+
+
+def phase_conv3x3() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from hairci_torch.ops.conv3x3 import (
+        conv3x3,
+        conv3x3_reference,
+        kernel_weights,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    least_equal = 1.0
+    # borders and ragged tiles, other channel counts, no bias
+    for B, H, W, cin, cout, bias in ((3, 7, 9, 64, 64, True),
+                                     (2, 17, 33, 24, 40, True),
+                                     (1, 1, 1, 8, 8, False),
+                                     (2, 8, 16, 64, 128, False)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for stats in (False, True):
+                r = _check_conv(*_conv_inputs(gen, B, H, W, cin, cout, dtype,
+                                              bias), stats)
+                worst[dtype] = max(worst[dtype], r["err"])
+    times = {}
+    # the TPU tool's shape, the full-width embed's batch of layer1, and the
+    # batch the kNN CLI gives the kernel on the main path
+    for B in (256, KNN_BATCH, CLI_BATCH):
+        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x, w, b = _conv_inputs(gen, B, 56, 56, 64, 64, dtype)
+            for stats in (False, True):
+                r = _check_conv(x, w, b, stats)
+                worst[dtype] = max(worst[dtype], r["err"])
+                if dtype == torch.bfloat16:
+                    least_equal = min(least_equal, r["equal"])
+            # the same result on every run: no atomics in the statistics
+            one, two = conv3x3(x, w, b, stats=True), conv3x3(x, w, b,
+                                                             stats=True)
+            if not all(torch.equal(p, q) for p, q in zip(one, two)):
+                raise AssertionError("conv3x3 differs from run to run")
+            del one, two
+            nbytes = (2 * x.numel() * x.element_size() + 9 * 64 * 64 * 4
+                      + 64 * 4)
+            bound, by = _bound(nbytes, 2.0 * B * 56 * 56 * 9 * 64 * 64, kind)
+            wl, bl = w.to(dtype), b.to(dtype)
+            with torch.no_grad():
+                row = {
+                    "ms": _median_ms(lambda: conv3x3(x, w, b)),
+                    # the wrapper's own part of that: the weights' cast and
+                    # re-layout, small launches before the kernel's
+                    "weights_ms": _median_ms(
+                        lambda: kernel_weights(w, dtype)),
+                    "stats_ms": _median_ms(lambda: conv3x3(x, w, b,
+                                                           stats=True)),
+                    "plain_ms": _median_ms(lambda: conv3x3_reference(x, w,
+                                                                     b)),
+                    "plain_stats_ms": _median_ms(
+                        lambda: conv3x3_reference(x, w, b, stats=True)),
+                    # the one PyTorch call that computes the same function
+                    # (cuDNN); timed here, used nowhere in the port
+                    "library_ms": _median_ms(lambda: F.conv2d(x, wl, bl,
+                                                              padding=1)),
+                    "bound_ms": bound, "bound_by": by}
+            times[(B, kind)] = row
+            print(f"conv3x3 ({B}, 56, 56, 64) -> 64 {kind}: kernel "
+                  f"{row['ms']:.4f} ms ({100 * bound / row['ms']:.1f} % of "
+                  f"the bound {bound:.4f} ms, by {by}; {row['weights_ms']:.4f}"
+                  f" ms of it the weights' re-layout), with stats "
+                  f"{row['stats_ms']:.4f} ms; twin {row['plain_ms']:.4f} ms, "
+                  f"with stats {row['plain_stats_ms']:.4f} ms; F.conv2d "
+                  f"{row['library_ms']:.4f} ms "
+                  f"({100 * bound / row['library_ms']:.1f} % of the bound)")
+            del x, w, b, wl, bl
+    print(f"conv3x3 vs twin: ok; max |err| f32 {worst[torch.float32]:.3g} "
+          f"bf16 {worst[torch.bfloat16]:.3g}; bf16 outputs bitwise equal at "
+          f"56x56x64: >= {100 * least_equal:.4f} %")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst[torch.bfloat16], "times": times}
 
 
 def phase_kernels() -> dict:
     return {"topk": phase_topk(), "rotate": phase_rotate(),
-            "bn_stats": phase_bn_stats()}
+            "bn_stats": phase_bn_stats(), "conv3x3": phase_conv3x3()}
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice through its entry point
 # ---------------------------------------------------------------------------
+
+def _wrappers() -> dict:
+    from hairci_torch.ops.bn_stats import bn_stats
+    from hairci_torch.ops.conv3x3 import conv3x3
+    from hairci_torch.ops.rotate import rotate_shear
+    from hairci_torch.ops.topk import topk_gallery_search
+
+    return {"topk_gallery_search": topk_gallery_search,
+            "rotate_shear": rotate_shear, "bn_stats": bn_stats,
+            "conv3x3": conv3x3}
+
+
+def _reset_counts() -> None:
+    """Every kernel's launch count to 0, just before a path is driven."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
 
 def _request(server, path, payload=None):
     url = f"http://127.0.0.1:{server.server_address[1]}{path}"
@@ -375,7 +574,6 @@ def phase_serve(workdir: str):
     import numpy as np
     import torch
 
-    from hairci_torch.ops.topk import topk_gallery_search
     from hairci_torch.retrieval.encoders import HairEncoder
     from hairci_torch.serve.api import serve
 
@@ -385,7 +583,7 @@ def phase_serve(workdir: str):
           f"{time.perf_counter() - t0:.2f} s to build")
     index_dir = os.path.join(workdir, "index")
 
-    topk_gallery_search.launches = 0
+    _reset_counts()
     searches = 0
     t0 = time.perf_counter()
     server = serve(encoder, index_dir, port=0, dataset_path=DATASET)
@@ -446,7 +644,7 @@ def phase_serve(workdir: str):
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    launches = topk_gallery_search.launches
+    launches = _counts()["topk_gallery_search"]
     print(f"topk kernel launches during the serve run: {launches} for "
           f"{searches} searches")
     if launches < searches:
@@ -527,9 +725,6 @@ def phase_train(workdir: str, kern: dict) -> dict:
     import torch
 
     from hairci_torch.cli import mainpretrain
-    from hairci_torch.ops.bn_stats import bn_stats
-    from hairci_torch.ops.rotate import rotate_shear
-    from hairci_torch.ops.topk import topk_gallery_search
 
     manifest = _write_manifest(workdir)
     epochs, steps_per_epoch = 3, 128 // TRAIN_BATCH
@@ -541,15 +736,12 @@ def phase_train(workdir: str, kern: dict) -> dict:
             "--train_annotation", manifest, "--img_dir", DATASET,
             "--save_path", os.path.join(workdir, "out")]
     torch.cuda.reset_peak_memory_stats()
-    rotate_shear.launches = bn_stats.launches = 0
-    topk_gallery_search.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     trainer = mainpretrain.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rotate_shear": rotate_shear.launches,
-                "bn_stats": bn_stats.launches,
-                "topk_gallery_search": topk_gallery_search.launches}
+    launches = _counts()
     steps = epochs * steps_per_epoch
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"mainpretrain SHAM resnet50 {SIZE}px bf16 B={TRAIN_BATCH}: "
@@ -562,6 +754,12 @@ def phase_train(workdir: str, kern: dict) -> dict:
     if launches["bn_stats"] != 55 * steps:
         raise AssertionError(f"bn_stats launches {launches['bn_stats']} != "
                              f"55 x {steps} steps")
+    # forwards that need no gradient go through the conv3x3 kernel: the EMA
+    # teacher's, one a step, and one more in each step of the mining epoch
+    no_grad_forwards = steps + steps_per_epoch
+    if launches["conv3x3"] != 3 * no_grad_forwards:
+        raise AssertionError(f"conv3x3 launches {launches['conv3x3']} != 3 x "
+                             f"{no_grad_forwards} forwards without gradient")
 
     with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
         metrics = [json.loads(line) for line in f]
@@ -598,13 +796,271 @@ def phase_train(workdir: str, kern: dict) -> dict:
     print(f"the two kernels' share of a mined step: {k_ms:.3f} ms of "
           f"{step_ms['mined']:.2f} ms ({100 * k_ms / step_ms['mined']:.2f} %,"
           f" from the kernels' times at these shapes in phase 3)")
+    save_path = trainer.save_path
     del trainer, state, images
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak}
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak,
+            "save_path": save_path, "manifest": manifest}
 
 
 # ---------------------------------------------------------------------------
-# phase 7: one training step on the card against the CPU
+# phase 7: the kNN evaluation slice through its entry point
+# ---------------------------------------------------------------------------
+
+def _embed_ms(recipe, state, images, library_conv: bool = False,
+              runs: int = 20) -> float:
+    """Median device ms of ``recipe.extract_features`` on a uint8 batch.
+    ``library_conv`` sends the three 64 -> 64 3x3 convs to F.conv2d (cuDNN)
+    instead of the conv3x3 kernel, for this measurement only."""
+    from hairci_torch.models.resnet import Conv2d
+
+    convs = [m for m in state.online.modules()
+             if isinstance(m, Conv2d) and m.to_kernel]
+    if len(convs) != 3:
+        raise AssertionError(f"{len(convs)} convs of the kernel's shape in "
+                             "ResNet-50, expected 3")
+    try:
+        for m in convs:
+            m.to_kernel = not library_conv
+        return _median_ms(lambda: recipe.extract_features(state, images),
+                          runs=runs, warmup=3)
+    finally:
+        for m in convs:
+            m.to_kernel = True
+
+
+def phase_knn(workdir: str, train: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from hairci_torch.cli import knn_classification
+    from hairci_torch.eval.knn import DEFAULT_KS, knn_predict
+
+    batch = CLI_BATCH
+    test_csv = os.path.join(workdir, "test.csv")
+    with open(train["manifest"]) as f:
+        rows = f.read().splitlines()
+    with open(test_csv, "w") as f:
+        f.write("\n".join(rows[:65]) + "\n")   # the header and 64 images
+    out_dir = os.path.join(workdir, "knn_out")
+    argv = ["--mode", "SHAM", "--model", "resnet50", "--size", str(SIZE),
+            "--dtype", "bfloat16", "--eval_type", "knn",
+            "--batch_size", str(batch), "--num_workers", "8",
+            "--checkpoint_path", train["save_path"],
+            "--train_annotation", train["manifest"],
+            "--test_annotation", test_csv, "--img_dir", DATASET,
+            "--save_path", out_dir]
+    forwards = math.ceil(128 / batch) + math.ceil(64 / batch)
+    _reset_counts()
+    t0 = time.perf_counter()
+    clf = knn_classification.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    print(f"knn_classification SHAM resnet50 {SIZE}px bf16, batches of "
+          f"{batch}: 128 train + 64 test images, {forwards} forwards, in "
+          f"{seconds:.2f} s (model build and checkpoint load included); "
+          f"launches {launches}")
+    if launches["conv3x3"] != 3 * forwards:
+        raise AssertionError(f"conv3x3 launches {launches['conv3x3']} != 3 x "
+                             f"{forwards} forwards")
+    if launches["bn_stats"] != 0:
+        raise AssertionError("an eval-mode BatchNorm took batch statistics")
+    with open(os.path.join(out_dir, "knn_evaluation_results.txt")) as f:
+        text = f.read()
+    accuracy = {}
+    for k in DEFAULT_KS:
+        head = f"Results for k={k}\n" + "-" * 40 + "\nAccuracy: "
+        if text.count(head) != 1:
+            raise AssertionError(f"knn_evaluation_results.txt: no block for "
+                                 f"k={k}")
+        accuracy[k] = float(text.split(head)[1].split("\n")[0])
+    print(f"knn_evaluation_results.txt: accuracy by k {accuracy}")
+    tr_f, tr_l, te_f, te_l = clf.extracting_features()
+    if tr_f.shape != (128, 2048) or te_f.shape != (64, 2048) or \
+            tr_f.dtype != np.float32:
+        raise AssertionError(f"features {tr_f.shape} {te_f.shape}")
+    for f in (tr_f, te_f):
+        norms = np.linalg.norm(f, axis=1)
+        if not (np.isfinite(f).all() and np.abs(norms - 1).max() < 1e-3):
+            raise AssertionError("features are not finite and unit-norm")
+    # every test image is in the train set: its nearest neighbour is itself
+    self_hit = float(np.mean(knn_predict(tr_f, tr_l, te_f, 1) == te_l))
+    print(f"self-retrieval at k=1: {100 * self_hit:.1f} %")
+    if self_hit != 1.0:
+        raise AssertionError("k=1 self-retrieval is not 100 %")
+
+    # the device's share of the embed: the forwards' device time (CUDA
+    # events, same batch shape) against the host clock of a second
+    # extraction over both loaders
+    images, _ = next(iter(clf.train_loader))
+    x = torch.from_numpy(images).cuda()
+    fwd_ms = _median_ms(lambda: clf.embed_fn(x), runs=10, warmup=2)
+    clf._cached = None
+    t0 = time.perf_counter()
+    clf.extracting_features()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    idle = 1 - forwards * fwd_ms / wall_ms
+    print(f"embed through the loader: {192 / wall_ms * 1e3:.1f} img/s over "
+          f"192 images in {wall_ms:.1f} ms (PIL decode, 8 threads); forward "
+          f"at batch {batch} {fwd_ms:.3f} ms, so the card is idle an "
+          f"estimated {100 * idle:.1f} % of the extraction (not from a "
+          f"trace)")
+    del clf, x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "idle": idle}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: kNN at the gallery size of the README's benchmark
+# ---------------------------------------------------------------------------
+
+def phase_knn_full() -> None:
+    import numpy as np
+    import torch
+
+    from hairci_torch.eval.knn import (
+        DEFAULT_KS,
+        knn_predict_multi,
+        ordered_neighbours,
+        similarities,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    N, D, C, Q, DUP = GALLERY_ROWS, 2048, 61, 4096, 64
+
+    def unit(x):
+        return x / x.norm(dim=1, keepdim=True)
+
+    # rows scatter around their class's centre, so votes are decided by the
+    # data and not by which of two f32 summation orders ranks a near-tie
+    centres = unit(torch.randn(C, D, device=dev, generator=gen))
+    labels = torch.randint(0, C, (N,), device=dev, generator=gen)
+    gallery = unit(centres[labels]
+                   + unit(torch.randn(N, D, device=dev, generator=gen)))
+    # exact ties: rows 1000 .. 1063 repeat rows 0 .. 63 under another label
+    gallery[1000:1000 + DUP] = gallery[:DUP]
+    labels[1000:1000 + DUP] = (labels[:DUP] + 1) % C
+    rows = torch.randint(0, N, (Q,), device=dev, generator=gen)
+    rows[:DUP] = torch.arange(DUP, device=dev)
+    noise = unit(torch.randn(Q, D, device=dev, generator=gen))
+    noise[:DUP] = 0     # these queries equal a duplicated row exactly
+    queries = unit(gallery[rows] + 0.5 * noise)
+    g_np, l_np, q_np = (t.cpu().numpy() for t in (gallery, labels, queries))
+
+    sims = similarities(queries, gallery)
+    first = {}
+    for method in ("sort", "topk"):
+        first[method] = ordered_neighbours(sims, max(DEFAULT_KS), method)
+        ms = _median_ms(lambda: ordered_neighbours(sims, max(DEFAULT_KS),
+                                                   method), runs=5, warmup=1)
+        print(f"ordered_neighbours {Q} x {N}, k={max(DEFAULT_KS)}, {method}: "
+              f"{ms:.2f} ms")
+    if not torch.equal(first["sort"], first["topk"]):
+        raise AssertionError("the two orderings disagree")
+    want = torch.arange(DUP, device=dev)
+    if not (torch.equal(first["sort"][:DUP, 0], want)
+            and torch.equal(first["sort"][:DUP, 1], want + 1000)):
+        raise AssertionError("kNN tie order: the lower index must win")
+    mm_ms = _median_ms(lambda: similarities(queries, gallery), runs=5,
+                       warmup=1)
+    print(f"similarities {Q} x {N} x {D} f32: {mm_ms:.2f} ms "
+          f"({2.0 * Q * N * D / mm_ms / 1e9:.1f} TFLOP/s)")
+    del sims, first
+    torch.cuda.empty_cache()
+
+    for _ in range(3):
+        t0 = time.perf_counter()
+        preds = knn_predict_multi(g_np, l_np, q_np, DEFAULT_KS, C)
+        torch.cuda.synchronize()
+        print(f"knn_predict_multi, {N} x {D} gallery, {Q} queries, ks "
+              f"{DEFAULT_KS}: {time.perf_counter() - t0:.3f} s "
+              f"(host clock; the gallery's copy to the card included)")
+    t0 = time.perf_counter()
+    cpu = knn_predict_multi(g_np, l_np, q_np[:512], DEFAULT_KS, C,
+                            device="cpu")
+    print(f"the same on the CPU for 512 queries: "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k in DEFAULT_KS:
+        if not np.array_equal(preds[k][:512], cpu[k]):
+            raise AssertionError(f"kNN predictions differ at k={k}")
+    # with k=1 and 2 the duplicated rows decide: the lower index's label,
+    # then a 1:1 vote that goes to the lower class
+    small = knn_predict_multi(g_np, l_np, q_np[:DUP], (1, 2), C)
+    if not (np.array_equal(small[1], l_np[:DUP]) and np.array_equal(
+            small[2], np.minimum(l_np[:DUP], l_np[1000:1000 + DUP]))):
+        raise AssertionError("kNN ties: lower index, then lower class")
+    acc = float(np.mean(preds[5] == l_np[rows.cpu().numpy()]))
+    print(f"kNN at full size: card == CPU on 512 queries at every k; top-k "
+          f"with repair == stable sort on {Q} x {N} scores; ties by index "
+          f"and class; accuracy at k=5 {acc:.4f}")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the embed at full width
+# ---------------------------------------------------------------------------
+
+def phase_embed(conv: dict) -> None:
+    import numpy as np
+    import torch
+
+    from hairci_torch.ops.conv3x3 import conv3x3
+    from hairci_torch.ssl.sham import SHAMRecipe
+
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (KNN_BATCH, SIZE, SIZE, 3), dtype=np.uint8))
+    rec = SHAMRecipe(backbone="resnet50", img_size=SIZE,
+                     dtype=torch.bfloat16)
+    state = rec.create_state(SEED, 8, torch.device("cuda"))
+    x = images.cuda()
+    before = conv3x3.launches
+    feats = rec.extract_features(state, x)
+    torch.cuda.synchronize()
+    if conv3x3.launches - before != 3 or feats.shape != (KNN_BATCH, 2048):
+        raise AssertionError("one eval forward must launch conv3x3 3 times")
+    ms = {}
+    for name, lib in (("kernel", False), ("F.conv2d", True),
+                      ("F.conv2d again", True), ("kernel again", False)):
+        ms[name] = _embed_ms(rec, state, x, library_conv=lib)
+        print(f"ResNet-50 eval forward {SIZE}px bf16 batch {KNN_BATCH}, 3x3 "
+              f"64->64 convs by {name}: {ms[name]:.3f} ms "
+              f"({KNN_BATCH * 1e3 / ms[name]:.1f} img/s)")
+    # does the host keep ahead of the card? its time to enqueue one forward
+    # (no synchronize inside the clock), and the batch the CLI is driven at
+    enqueue = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        rec.extract_features(state, x)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    enqueue.sort()
+    ms_cli = _embed_ms(rec, state, x[:CLI_BATCH].contiguous())
+    print(f"the host enqueues that forward in {enqueue[5]:.3f} ms (median of "
+          f"10, host clock); the same forward at batch {CLI_BATCH}: "
+          f"{ms_cli:.3f} ms ({CLI_BATCH * 1e3 / ms_cli:.1f} img/s)")
+    k_ms = 3 * conv[(KNN_BATCH, "bf16")]["ms"]
+    print(f"the conv3x3 kernel's share of that forward: {k_ms:.3f} ms of "
+          f"{ms['kernel']:.3f} ms ({100 * k_ms / ms['kernel']:.1f} %, from "
+          f"its time at this shape in phase 3)")
+    rec32 = SHAMRecipe(backbone="resnet50", img_size=SIZE,
+                       dtype=torch.float32)
+    cpu = rec32.extract_features(
+        rec32.create_state(SEED, 8, torch.device("cpu")), images[:4])
+    a, b = feats[:4].float().cpu(), cpu.float()
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=1)
+    print(f"ResNet-50 features bf16 cuda vs f32 cpu cosine: {cos.tolist()}")
+    if not bool((cos >= 0.99).all()):
+        raise AssertionError("card and CPU features disagree")
+    del state, x
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 10: one training step on the card against the CPU
 # ---------------------------------------------------------------------------
 
 def phase_train_parity() -> None:
@@ -658,8 +1114,18 @@ def main() -> int:
         phase_parity(encoder, paths)
         del encoder
         train = phase_train(workdir, kern)
+        knn = phase_knn(workdir, train)
+    phase_knn_full()
+    phase_embed(kern["conv3x3"]["times"])
     phase_train_parity()
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
+    conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
+    # ms, plain_ms, bound_ms and library_ms of a kernel are at one shape: the
+    # top-k at Q=1 on the f32 gallery, the rotation with blur at the step's
+    # batch, the 55 BN inputs of one SHAM forward summed, and the conv at
+    # the batch the kNN CLI ran it with (its launches are that run's), bf16. No single PyTorch call computes
+    # the first three (matmul + sort is two, grid_sample is no 3-shear, and
+    # var_mean gives other statistics), so their library_ms is null.
     print(json.dumps({"kernels": [
         {"name": "topk_gallery_search", "route": "cuda",
          "source": "hairci_torch/ops/csrc/topk.cu",
@@ -667,21 +1133,35 @@ def main() -> int:
          "launches": launches,
          "max_abs_err": topk["max_abs_err"],
          "ms": topk["times"][(1, "f32")][0],
-         "plain_ms": topk["times"][(1, "f32")][1]},
+         "plain_ms": topk["times"][(1, "f32")][1],
+         "bound_ms": topk["bound"][0], "bound_by": topk["bound"][1],
+         "library_ms": None},
         {"name": "rotate_shear", "route": "cuda",
          "source": "hairci_torch/ops/csrc/rotate.cu",
          "replaces": "hairci/ops/rotate_pallas.py:70",
          "launches": train["launches"]["rotate_shear"],
          "max_abs_err": rot["max_abs_err"],
          "ms": rot["times"]["blur"][0],
-         "plain_ms": rot["times"]["blur"][1]},
+         "plain_ms": rot["times"]["blur"][1],
+         "bound_ms": rot["bound"][0], "bound_by": rot["bound"][1],
+         "library_ms": None},
         {"name": "bn_stats", "route": "cuda",
          "source": "hairci_torch/ops/csrc/bn_stats.cu",
          "replaces": "tools/bn_stats_bench.py:28",
          "launches": train["launches"]["bn_stats"],
          "max_abs_err": bn["max_abs_err"],
          "ms": bn["step"][0],
-         "plain_ms": bn["step"][1]}]}))
+         "plain_ms": bn["step"][1],
+         "bound_ms": bn["bound"][0], "bound_by": bn["bound"][1],
+         "library_ms": None},
+        {"name": "conv3x3", "route": "cuda",
+         "source": "hairci_torch/ops/csrc/conv3x3.cu",
+         "replaces": "tools/fused_conv_bn_bench.py:47",
+         "launches": knn["launches"]["conv3x3"],
+         "max_abs_err": kern["conv3x3"]["max_abs_err"],
+         "ms": conv["ms"], "plain_ms": conv["plain_ms"],
+         "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+         "library_ms": conv["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

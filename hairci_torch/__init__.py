@@ -2,17 +2,22 @@
 
 Same subpackage layout and module names as ``hairci/``, which stays the JAX
 reference each module is tested against. This package imports ``torch`` and
-never ``jax``; of ``hairci`` it imports only ``hairci.data`` (numpy/PIL).
+never ``jax``, and nothing of ``hairci``: ``data/`` is its own copy of the
+JAX-free loader.
 
-Ported so far: the hair-retrieval serving path.
-  aug/        to_float, normalize (uint8 NHWC at the public boundary)
-  eval/       l2_normalize
-  models/     ViT eval forward (vit.py) + JAX-param converter (convert.py)
+Ported so far: hair-retrieval serving, SHAM training, and kNN evaluation.
+  aug/        SimCLR/SHAM ops and pipelines, knn and test transforms
+  data/       CSV manifests and the threaded PIL loader
+  eval/       l2_normalize, extract_features, kNN, the report, Classifier
+  losses/     NT-Xent, triplet, margin statistics
+  models/     ViT eval forward, ResNets, BatchNorm, heads, converters
   ops/        hand-written CUDA kernels (csrc/) with plain twins
   retrieval/  GalleryIndex, HairEncoder
-  cli/        python -m hairci_torch.cli.retrieval
+  ssl/        recipe registry, SHAMRecipe
+  train/      TrainState, optimizer, Trainer, checkpoints
+  cli/        retrieval, mainpretrain, knn_classification
   serve/      python -m hairci_torch.serve.api
-  utils/      device resolution
+  utils/      device resolution, flags and YAML
 """
 
 __version__ = "0.1.0"

@@ -141,6 +141,21 @@ def resized_crop(x: torch.Tensor, top, left, h, w, size: int) -> torch.Tensor:
     return torch.einsum("bwx,bywc->byxc", wx, t)
 
 
+def resize(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear",
+           antialias: bool = True) -> torch.Tensor:
+    """``jax.image.resize`` of an (B, H, W, C) batch to (size[0], size[1]):
+    bilinear, antialiased, through the same weight matrices as the crop."""
+    if method != "bilinear" or not antialias:
+        raise NotImplementedError("resize: only bilinear with antialias is "
+                                  "ported")
+    B, H, W, C = x.shape
+    zero = torch.zeros(1, device=x.device)
+    wy, wx = (_weight_mat(n, out, torch.full((1,), out / n, device=x.device),
+                          zero)[0] for n, out in ((H, size[0]), (W, size[1])))
+    t = torch.einsum("hy,bhwc->bywc", wy, x.float())
+    return torch.einsum("wx,bywc->byxc", wx, t)
+
+
 def random_resized_crop(gen, x, size, scale=(0.08, 1.0),
                         ratio=(3.0 / 4.0, 4.0 / 3.0)):
     B, H, W, _ = x.shape

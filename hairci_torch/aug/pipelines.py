@@ -1,6 +1,7 @@
 """Augmentation pipelines (port of the SHAM half of
 ``hairci/aug/pipelines.py``): the SimCLR views, the positive transform and
-the hair masking of every SHAM step, and the deterministic kNN transform.
+the hair masking of every SHAM step, and the deterministic kNN and test
+transforms.
 
 Each pipeline has a draw half (a dict of small CPU tensors from one CPU
 ``torch.Generator``) and an apply half that takes those draws, so a test can
@@ -153,3 +154,12 @@ def positive_masking_transform(x: torch.Tensor, d: Draws,
 def knn_transform(x: torch.Tensor, size: int = 224) -> torch.Tensor:
     """CenterCrop(size) + ToTensor + ImageNet normalize (deterministic)."""
     return ops.normalize(ops.center_crop(ops.to_float(x), size))
+
+
+def test_transform(x: torch.Tensor, size: int = 224, mean=ops.IMAGENET_MEAN,
+                   std=ops.IMAGENET_STD) -> torch.Tensor:
+    """``get_test_transform``: Resize((size, size)) + normalize."""
+    return ops.normalize(ops.resize(ops.to_float(x), (size, size)), mean, std)
+
+
+test_transform.__test__ = False  # a transform, not a test, for pytest

@@ -1,1 +1,2 @@
-"""Command-line entry points (port of hairci.cli)."""
+"""Command-line entry points (port of hairci.cli): ``retrieval``,
+``mainpretrain`` (SHAM) and ``knn_classification`` (SHAM, kNN)."""

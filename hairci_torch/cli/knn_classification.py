@@ -1,0 +1,142 @@
+"""Evaluation entry point of the port (``hairci/cli/knn_classification.py``):
+the same flags and YAML, SHAM mode and ``--eval_type knn`` so far.
+
+    python -m hairci_torch.cli.knn_classification --mode SHAM \\
+        --model resnet50 --eval_type knn --checkpoint_path output_dir/run \\
+        --train_annotation train.csv --test_annotation test.csv \\
+        --img_dir images/ --save_path classification_output_dir
+
+Manifests -> ``DataLoader(mode="center_crop")`` -> the recipe's
+``extract_features`` (``knn_transform`` + the backbone in eval mode) over
+both loaders, L2-normalized -> kNN for k in {5, 10, 20, 27, 30, 40, 642} in
+one pass -> ``knn_evaluation_results.txt``.
+
+``--device`` defaults to cuda and raises without a card; ``--device cpu``
+runs the kernels' plain twins. ``--checkpoint_path`` takes a checkpoint of
+the port's Trainer (the file, its run directory or its ``checkpoints/``
+folder, resolved to the newest), or a reference-trained ``.pth``/``.pt``.
+Other modes and evaluation types exit with "not yet ported".
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+import torch
+
+from hairci_torch.cli.mainpretrain import set_seed
+from hairci_torch.data import DataLoader, load_manifest
+from hairci_torch.eval.classifier import Classifier
+from hairci_torch.models.convert import load_torch_state_dict, \
+    sham2_state_dict
+from hairci_torch.ssl import build_recipe
+from hairci_torch.train import checkpoint as ckpt_lib
+from hairci_torch.utils.config import merge_config_with_args
+from hairci_torch.utils.device import resolve_device
+
+EVAL_MODES = ["mae", "simclr", "simclr_supcon", "dinov2", "simMIM",
+              "siaMIM", "SHAM", "DenseCL", "MSN"]
+
+
+def build_eval_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Self-supervised/Supervised Trainer Arguments "
+                    "(hairci_torch eval)")
+    p.add_argument("--save_path", type=str,
+                   default="classification_output_dir")
+    p.add_argument("--size", type=int, default=224)
+    p.add_argument("--train_annotation", type=str)
+    p.add_argument("--test_annotation", type=str)
+    p.add_argument("--img_dir", type=str)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--mode", type=str, default="simclr_supcon",
+                   choices=EVAL_MODES)
+    p.add_argument("--model", type=str, default="resnet18",
+                   choices=["resnet18", "resnet50", "vit_b_16"])
+    p.add_argument("--checkpoint_path", type=str, default=None)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    p.add_argument("--SHAM_mode", type=str, default="embedding",
+                   choices=["embedding", "reconstruction"])
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--config", type=str)
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--eval_type", default=None, type=str,
+                   choices=["knn", "linear_prob", "visualization",
+                            "inter_intra_distance"])
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    return p
+
+
+def recipe_for_eval(args):
+    if args.mode != "SHAM":
+        raise SystemExit(f"mode {args.mode!r} is not yet ported "
+                         "(hairci_torch evaluates SHAM only)")
+    if args.model == "vit_b_16":
+        raise SystemExit("SHAM on a ViT backbone is not yet ported")
+    return build_recipe(
+        "SHAM", backbone=args.model, img_size=args.size,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
+
+
+def load_state(recipe, args, device: torch.device):
+    """A seeded random state, then the checkpoint's weights over it."""
+    state = recipe.create_state(args.seed, min(args.batch_size, 8), device)
+    path = args.checkpoint_path
+    if path and path.endswith((".pth", ".pt")):
+        sd = sham2_state_dict(load_torch_state_dict(path))
+        state.online.load_state_dict(sd)
+        state.ema.load_state_dict(sd)
+        logging.info("torch checkpoint loaded from %s", path)
+    elif path:
+        # a run dir or its checkpoints/ folder resolves to the newest one
+        for cand in (path, os.path.join(path, "checkpoints")):
+            latest = ckpt_lib.get_latest_checkpoint(cand)
+            if latest:
+                path = latest
+                break
+        ckpt_lib.restore_online_only(path, state)
+        logging.info("checkpoint loaded from %s", path)
+    else:
+        logging.warning("no --checkpoint_path; evaluating random init")
+    return state
+
+
+def main(argv=None) -> Classifier:
+    """Parse, evaluate, and return the Classifier (its cached features and
+    labels are what the result file was written from)."""
+    logging.basicConfig(level=logging.INFO)
+    parser = build_eval_parser()
+    args = parser.parse_args(argv)
+    args = merge_config_with_args(args, parser, argv)
+    if args.eval_type is None:
+        raise SystemExit("--eval_type is required")
+    if args.eval_type != "knn":
+        raise SystemExit(f"--eval_type {args.eval_type} is not yet ported "
+                         "(hairci_torch evaluates knn only)")
+    recipe = recipe_for_eval(args)
+    device = resolve_device(args.device)
+    set_seed(args.seed)
+
+    # deterministic eval loaders: exact CenterCrop(size) on the host,
+    # normalize on the device inside the recipe's extract_features
+    loaders = [DataLoader(load_manifest(annotation, args.img_dir),
+                          args.batch_size, size=args.size, mode="center_crop",
+                          shuffle=False, num_workers=args.num_workers)
+               for annotation in (args.train_annotation, args.test_annotation)]
+    state = load_state(recipe, args, device)
+
+    def embed_fn(images):
+        return recipe.extract_features(state, images)
+
+    clf = Classifier(embed_fn, *loaders, args.save_path,
+                     batch_size=args.batch_size, device=device)
+    clf.knn_eval()
+    return clf
+
+
+if __name__ == "__main__":
+    main()

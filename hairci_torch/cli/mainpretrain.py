@@ -17,7 +17,7 @@ import random
 import numpy as np
 import torch
 
-from hairci.data import DataLoader, load_manifest
+from hairci_torch.data import DataLoader, load_manifest
 from hairci_torch.ssl import build_recipe
 from hairci_torch.train.engine import Trainer
 from hairci_torch.utils.config import parse_pretrain_args

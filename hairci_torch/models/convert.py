@@ -12,7 +12,8 @@ timm/reference ViT state dict up to the port's key set the way
 ``ResNet`` / ``SHAMModule`` (params and batch stats) with the key mapping of
 ``export_resnet`` and ``export_sham2`` (torchvision layout; the SHAM head as
 ``projection_head.layers.{0,1,3,4}``), with the backbone under ``backbone.``
-rather than the reference's ``nn.Sequential`` indices.
+rather than the reference's ``nn.Sequential`` indices; ``sham2_state_dict``
+renames a reference-trained SHAM ``.pth`` in that ``nn.Sequential`` layout.
 """
 
 from __future__ import annotations
@@ -114,6 +115,31 @@ def sham_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
             np.asarray(hp[f"dense{i}"]["kernel"]).T)
         _put_bn(sd, f"projection_head.layers.{bn}", hp[f"bn{i}"], hs[f"bn{i}"])
     return sd
+
+
+_SEQUENTIAL_RESNET = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+                      "6": "layer3", "7": "layer4"}
+
+
+def sham2_state_dict(sd: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """A reference-trained SHAM checkpoint (the layout that
+    ``hairci/retrieval/torch_import.py:convert_sham2`` reads: the backbone
+    as ``nn.Sequential(*resnet.children())`` under ``backbone.<int>.``, the
+    lightly head under ``projection_head.layers.``) -> the port's
+    ``SHAMModule`` state dict. ``num_batches_tracked`` counters and keys of
+    other modules are dropped; load with ``strict=True``."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key.startswith("projection_head."):
+            out[key] = value
+        elif key.startswith("backbone."):
+            head, _, tail = key[len("backbone."):].partition(".")
+            if head in _SEQUENTIAL_RESNET and tail:
+                out[f"backbone.{_SEQUENTIAL_RESNET[head]}.{tail}"] = value
+    return out
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:

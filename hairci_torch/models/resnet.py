@@ -11,6 +11,16 @@ f32 then rounded to ``dtype``.
 The public boundary is NHWC, as in JAX. Inside, the convs run on
 ``channels_last`` NCHW tensors: the boundary's NHWC becomes a free
 ``permute``, and the BatchNorm's ``(N*H*W, C)`` view stays contiguous.
+
+Which convs go to the hand-written kernel: a ``Conv2d`` that is 3x3, stride
+1, padding 1, 64 -> 64 channels goes through ``ops.conv3x3`` whenever grad
+mode is off (``torch.is_grad_enabled()`` is false, as under
+``torch.no_grad()`` in feature extraction and in the EMA teacher's forward):
+the CUDA kernel on a card, its plain twin on the CPU. In ResNet-50 these are
+layer1's three ``conv2``; in ResNet-18/34 layer1's four/six convs. With grad
+mode on the same conv runs through cuDNN: the kernel has no backward (the
+JAX package has none for its TPU counterpart either). Every other conv is
+cuDNN's.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hairci_torch.models.norm import BatchNorm
+from hairci_torch.ops.conv3x3 import conv3x3
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
@@ -40,10 +51,14 @@ class Conv2d(nn.Conv2d):
         super().__init__(cin, cout, k, stride=stride, padding=padding,
                          bias=False)
         self.dtype = dtype
+        # the shape of the hand-written kernel (see the module docstring)
+        self.to_kernel = (k, stride, padding, cin, cout) == (3, 1, 1, 64, 64)
         with torch.no_grad():
             lecun_normal_(self.weight, cin * k * k)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.to_kernel and not torch.is_grad_enabled():
+            return conv3x3(x.to(self.dtype), self.weight)
         return self._conv_forward(x.to(self.dtype),
                                   self.weight.to(self.dtype), None)
 

@@ -20,8 +20,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hairci.data.loader import decode_image
 from hairci_torch.aug import ops
+from hairci_torch.data.loader import decode_image
 from hairci_torch.eval.features import l2_normalize
 from hairci_torch.models.convert import load_torch_state_dict, \
     timm_vit_state_dict

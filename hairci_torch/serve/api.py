@@ -74,7 +74,7 @@ class RetrievalService:
         raw = base64.b64decode(payload["image_b64"])
         # encoder host transform (resize shorter side + center crop),
         # replicated here so /embed needs no temp file round-trip
-        from hairci.data.loader import _center_crop_uint8
+        from hairci_torch.data.loader import _center_crop_uint8
 
         s = self.encoder.img_size
         with Image.open(io.BytesIO(raw)) as im:

@@ -47,6 +47,14 @@ def restore_checkpoint(path: str, state: TrainState) -> int:
     return int(ckpt["epoch"])
 
 
+def restore_online_only(path: str, state: TrainState) -> None:
+    """Load only the online model of a Trainer checkpoint (evaluation): the
+    EMA teacher, the optimizer and the negative cache stay as they are."""
+    device = next(state.online.parameters()).device
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    state.online.load_state_dict(ckpt["online"])
+
+
 def get_latest_checkpoint(folder: str) -> Optional[str]:
     """``model_ckpt_latest`` if present, else the highest-numbered periodic
     checkpoint, else None."""
