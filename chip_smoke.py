@@ -8,12 +8,21 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and exits non-zero:
   1. device  -- the card's name and power limit; TF32 off for matmul and conv.
   2. build   -- nvcc builds every kernel from csrc/, one process per source,
-                all started together.
+                all started together; ptxas' registers and spills, and the
+                occupancy that follows for the conv3x3 tensor-core kernel
+                and the bn_stats kernel.
   3. kernels -- each kernel against its plain PyTorch twin on the card, at the
-                shapes of the serving, training and evaluation paths, with
-                median times of both, the least time the card could take
+                shapes of the serving, training and evaluation paths. Two
+                times per kernel and shape: the card's (50 calls back to back
+                inside one pair of CUDA events while the host is ahead) and
+                the host's (perf_counter round one call, no synchronise);
+                the twin's median time, the least time the card could take
                 for the same bytes and operations, and, where one PyTorch
-                call computes the same function, that call's time.
+                call computes the same function, that call's time. bn_stats
+                and conv3x3 are also run twice for equal bits; conv3x3
+                reports which of its two kernels each shape took, and a
+                Conv2d whose weight was updated in place must read the new
+                weights.
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
@@ -45,6 +54,9 @@ Phases, in order; any failure raises and exits non-zero:
                 card and on the CPU from identical weights, views and draws.
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+
+With ``--kernel-times [DIR]`` it only times the bn_stats and Conv2d wrappers
+of the ``hairci_torch`` package under DIR (see ``kernel_times``).
 """
 
 from __future__ import annotations
@@ -102,6 +114,68 @@ def _median_ms(fn, runs: int = 30, warmup: int = 5) -> float:
     return times[len(times) // 2]
 
 
+BACK_TO_BACK = 50   # calls inside one event pair for a kernel's card time
+
+
+def _host_ms(fn, n: int = BACK_TO_BACK, warmup: int = 5) -> float:
+    """Median host time of one call of ``fn``: ``time.perf_counter`` round
+    each of ``n`` calls, no synchronise inside. What the wrapper and the
+    launch cost the thread that drives the card."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _card_ms(fn, host_ms: float, n: int = BACK_TO_BACK) -> float:
+    """The card's time for one call of ``fn``: ``n`` calls back to back
+    inside one pair of CUDA events, divided by ``n``. The card first spins
+    in a sleep kernel for longer than the host needs to enqueue all ``n``
+    (``host_ms`` each), so it never waits for the host between two calls;
+    that the host stayed ahead is checked (the start event has not been
+    reached when the last call is enqueued; else the round is made again
+    with a longer sleep). Two rounds, the lower one."""
+    import torch
+
+    best, rounds, spin = float("inf"), 0, 2.0 * n * host_ms + 2.0
+    for attempt in range(6):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # at most 2e6 cycles a ms at the card's clock
+        torch.cuda._sleep(int(2e6 * spin))
+        start.record()
+        for _ in range(n):
+            fn()
+        ahead = not start.query()
+        end.record()
+        end.synchronize()
+        if not ahead:       # the host was held up: spin longer, try again
+            spin *= 2.0
+            continue
+        best = min(best, start.elapsed_time(end) / n)
+        rounds += 1
+        if rounds == 2:
+            return best
+    raise AssertionError("the card caught up with the host inside a "
+                         "back-to-back timing, six times")
+
+
+def _kernel_times(fn) -> tuple:
+    """(the card's ms, the host's ms) of one call of a kernel's wrapper."""
+    host = _host_ms(fn)
+    return _card_ms(fn, host), host
+
+
 # ---------------------------------------------------------------------------
 # phase 1: device
 # ---------------------------------------------------------------------------
@@ -137,9 +211,42 @@ def phase_build() -> None:
     for name, (path, seconds, log) in zip(KERNELS, built):
         print(f"build {name}: {seconds:.2f} s -> "
               f"{os.path.relpath(path, REPO)}")
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+            if "registers" in line:
+                _print_occupancy(entry, line)
+
+
+# threads per block and dynamic shared memory of the kernels this script
+# reports the occupancy of (csrc/conv3x3.cu, csrc/bn_stats.cu)
+OCCUPANCY_OF = {"conv3x3_mma_kernel": (256, 155648),
+                "bn_stats_kernel": (256, 0)}
+
+
+def _print_occupancy(entry: str, ptxas_line: str) -> None:
+    """Blocks and warps an SM holds of a kernel, from ptxas' registers and
+    static shared memory: 65,536 registers (a warp's are allotted in units of
+    256), 233,472 bytes of shared memory less 1,024 a block, 2,048 threads."""
+    import re
+
+    found = [k for k in OCCUPANCY_OF if k in entry]
+    regs = re.search(r"Used (\d+) registers", ptxas_line)
+    if not found or not regs:
+        return
+    threads, dynamic = OCCUPANCY_OF[found[0]]
+    smem = re.search(r"(\d+) bytes smem", ptxas_line)
+    shared = dynamic + (int(smem.group(1)) if smem else 0)
+    warps = threads // 32
+    per_warp = -(-int(regs.group(1)) * 32 // 256) * 256
+    blocks = min(65536 // (per_warp * warps), 233472 // (shared + 1024),
+                 2048 // threads, 32)
+    print(f"  occupancy: {blocks} blocks = {blocks * warps} warps an SM "
+          f"({threads} threads, {regs.group(1)} registers, {shared} bytes of "
+          f"shared memory a block)")
 
 
 # ---------------------------------------------------------------------------
@@ -226,11 +333,13 @@ def phase_topk() -> dict:
     for Q in (1, 256):
         q = unit(Q)
         for name, (g, _) in galleries.items():
-            kern = _median_ms(lambda: topk_gallery_search(q, g, 5))
+            kern, host = _kernel_times(lambda: topk_gallery_search(q, g, 5))
             twin = _median_ms(lambda: topk_gallery_search_reference(q, g, 5))
-            times[(Q, name)] = (kern, twin)
+            times[(Q, name)] = (kern, twin, host)
             print(f"topk Q={Q} N={GALLERY_ROWS} D={WIDTH} k=5 {name}: "
-                  f"kernel {kern:.4f} ms, twin {twin:.4f} ms")
+                  f"kernel {kern:.4f} ms on the card ({BACK_TO_BACK} calls "
+                  f"back to back), {host:.4f} ms on the host; twin "
+                  f"{twin:.4f} ms")
     del g32, galleries
     torch.cuda.empty_cache()
     # Q=1, f32 gallery: the gallery and the query read once, k scores and
@@ -295,13 +404,14 @@ def phase_rotate() -> dict:
         raise AssertionError("rotate differs from its twin at 33 x 31")
     times = {}
     for key, blur in (("plain", None), ("blur", sigma)):
-        kern = _median_ms(lambda: rotate_shear(x, theta, max_degrees=15.0,
-                                               blur_sigma=blur))
+        kern, host = _kernel_times(lambda: rotate_shear(
+            x, theta, max_degrees=15.0, blur_sigma=blur))
         twin = _median_ms(lambda: rotate_shear_reference(
             x, theta, max_degrees=15.0, blur_sigma=blur))
-        times[key] = (kern, twin)
-        print(f"rotate {B}x{SIZE}x{SIZE}x3 f32 {key}: kernel {kern:.4f} ms, "
-              f"twin {twin:.4f} ms, max |err| {err[key]:.3g}")
+        times[key] = (kern, twin, host)
+        print(f"rotate {B}x{SIZE}x{SIZE}x3 f32 {key}: kernel {kern:.4f} ms "
+              f"on the card, {host:.4f} ms on the host; twin {twin:.4f} ms, "
+              f"max |err| {err[key]:.3g}")
     print("rotate vs twin: ok (bitwise without blur)")
     # with blur: the batch read and written once, angles and sigmas read;
     # per value two 3-tap passes of 5 operations each
@@ -325,6 +435,12 @@ def _check_bn(x, atol_mean, atol_var) -> float:
             and torch.allclose(var, rvar, rtol=1e-3, atol=atol_var)):
         raise AssertionError(f"bn_stats differs from its twin at "
                              f"{tuple(x.shape)} {x.dtype}")
+    # one launch whose last block adds in index order: the same bits again
+    for _ in range(2):
+        s2, q2 = bn_stats(x)
+        if not (torch.equal(s, s2) and torch.equal(q, q2)):
+            raise AssertionError(f"bn_stats differs from run to run at "
+                                 f"{tuple(x.shape)} {x.dtype}")
     return max((mean - rmean).abs().max().item(),
                (var - rvar).abs().max().item())
 
@@ -332,21 +448,44 @@ def _check_bn(x, atol_mean, atol_var) -> float:
 def phase_bn_stats() -> dict:
     import torch
 
-    from hairci_torch.ops.bn_stats import bn_stats, bn_stats_reference
+    from hairci_torch.ops.bn_stats import (
+        bn_stats,
+        bn_stats_reference,
+        plan,
+        vector_width,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def blocks(x):
+        vec = vector_width(x.shape[1], x.element_size(), x.data_ptr())
+        log_tg, splits, _ = plan(x.shape[0], x.shape[1], vec, sms)
+        tiles = -(-x.shape[1] // (vec << log_tg))
+        return (f"{tiles} x {splits} blocks of {256 >> log_tg} row lanes x "
+                f"{1 << log_tg} groups of {vec}")
+
     tool = torch.randn(512 * 56 * 56, 256, device=dev,
                        generator=gen).bfloat16()
     err = _check_bn(tool, 1e-4, 1e-3)
-    tool_k = _median_ms(lambda: bn_stats(tool))
+    tool_k, tool_h = _kernel_times(lambda: bn_stats(tool))
     tool_t = _median_ms(lambda: bn_stats_reference(tool))
-    print(f"bn_stats {tuple(tool.shape)} bf16 (the tool's shape): kernel "
-          f"{tool_k:.4f} ms, twin {tool_t:.4f} ms "
-          f"({tool.numel() * 2 / tool_k / 1e6:.0f} GB/s by the kernel)")
+    print(f"bn_stats {tuple(tool.shape)} bf16 (the tool's shape), "
+          f"{blocks(tool)}: kernel {tool_k:.4f} ms on the card "
+          f"({tool.numel() * 2 / tool_k / 1e6:.0f} GB/s), {tool_h:.4f} ms on "
+          f"the host; twin {tool_t:.4f} ms")
     del tool
+    # f32 and inputs that rule out 16-byte loads, against the twin
+    for m, c, dtype in ((37632, 256, torch.float32),
+                        (192, 2048, torch.float32),
+                        (1000, 7, torch.bfloat16), (5000, 24, torch.float32)):
+        x = (torch.randn(m, c, device=dev, generator=gen) * 2 + 1).to(dtype)
+        err = max(err, _check_bn(x, 1e-4, 1e-3))
+    odd = torch.randn(64 * 32 + 1, device=dev, generator=gen)[1:].view(64, 32)
+    _check_bn(odd, 1e-4, 1e-3)      # a pointer off the 16-byte grid
     rows = 3 * TRAIN_BATCH
-    step_k = step_t = 0.0
+    step_k = step_h = step_t = 0.0
     # the trunk's and the head's BN inputs are all bf16 in the bf16 run
     shapes = [(m, c, n, torch.bfloat16)
               for m, c, n in resnet50_bn_shapes(rows, SIZE)]
@@ -355,23 +494,30 @@ def phase_bn_stats() -> dict:
     for m, c, n, dtype in shapes:
         x = (torch.randn(m, c, device=dev, generator=gen) * 2 + 1).to(dtype)
         err = max(err, _check_bn(x, 1e-4, 1e-3))
-        kern = _median_ms(lambda: bn_stats(x), runs=20)
+        kern, host = _kernel_times(lambda: bn_stats(x))
         twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
         step_k += n * kern
+        step_h += n * host
         step_t += n * twin
-        print(f"bn_stats ({m}, {c}) {str(dtype)[6:]} x{n} per forward: "
-              f"kernel {kern:.4f} ms, twin {twin:.4f} ms")
-    print(f"bn_stats, the {sum(n for *_, n, _ in shapes)} train-mode BNs of "
-          f"one ResNet-50 SHAM forward at {rows} rows: kernel {step_k:.3f} ms"
-          f", twin {step_t:.3f} ms; vs twin: ok, max |err| {err:.3g}")
+        floor = m * c * 2 / HBM_BYTES_PER_S * 1e3
+        print(f"bn_stats ({m}, {c}) {str(dtype)[6:]} x{n} per forward, "
+              f"{blocks(x)}: kernel {kern:.4f} ms on the card (bound "
+              f"{floor:.4f}), {host:.4f} ms on the host; twin {twin:.4f} ms")
+    count = sum(n for *_, n, _ in shapes)
+    print(f"bn_stats, the {count} train-mode BNs of one ResNet-50 SHAM "
+          f"forward at {rows} rows ({len(shapes)} shapes), {BACK_TO_BACK} "
+          f"calls back to back per shape: kernel {step_k:.3f} ms on the card,"
+          f" {step_h:.3f} ms on the host ({1e3 * step_h / count:.1f} us a "
+          f"call); twin {step_t:.3f} ms; vs twin and run to run: ok, max "
+          f"|err| {err:.3g}")
     torch.cuda.empty_cache()
     # one forward's BN inputs read once (bf16), two f32 vectors written per
     # launch; an add and a fused multiply-add per value
     values = sum(n * m * c for m, c, n, _ in shapes)
     bound = _bound(2 * values + sum(n * 8 * c for _, c, n, _ in shapes),
                    3.0 * values, "f32")
-    return {"max_abs_err": err, "step": (step_k, step_t),
-            "tool": (tool_k, tool_t), "bound": bound}
+    return {"max_abs_err": err, "step": (step_k, step_t, step_h),
+            "tool": (tool_k, tool_t, tool_h), "bound": bound}
 
 
 def _conv_inputs(gen, B, H, W, cin, cout, dtype, bias=True):
@@ -431,6 +577,48 @@ def _check_conv(x, w, b, stats) -> dict:
     return {"err": err, "equal": equal}
 
 
+def _check_conv2d_cache(gen) -> None:
+    """A ``Conv2d`` of the kernel's shape keeps its packed weights between
+    forwards; after an in-place update of the weight (an EMA teacher's, an
+    optimizer's) the next no-grad forward must read the new values."""
+    import torch
+
+    from hairci_torch.models.resnet import Conv2d
+    from hairci_torch.ops.conv3x3 import conv3x3, conv3x3_reference
+
+    conv = Conv2d(64, 64, 3, 1, 1, dtype=torch.bfloat16).cuda()
+    other = Conv2d(64, 64, 3, 1, 1, dtype=torch.bfloat16).cuda()
+    x = torch.randn(4, 56, 56, 64, device="cuda",
+                    generator=gen).bfloat16().permute(0, 3, 1, 2)
+    with torch.no_grad():
+        first = conv(x)
+        packed = conv.packed_weight()
+        if conv.packed_weight() is not packed:
+            raise AssertionError("Conv2d packed unchanged weights again")
+        torch._foreach_mul_([conv.weight], 0.5)             # an EMA update
+        torch._foreach_add_([conv.weight],
+                            torch._foreach_mul([other.weight], 0.5))
+        before = conv3x3.routes["mma"]
+        got = conv(x)
+        if conv3x3.routes["mma"] != before + 1:
+            raise AssertionError("Conv2d did not take the tensor-core kernel")
+        want = conv3x3_reference(x, conv.weight)
+        fresh = conv3x3(x, conv.weight)
+    torch.cuda.synchronize()
+    if conv.packed_weight() is packed or torch.equal(got, first):
+        raise AssertionError("Conv2d kept stale packed weights")
+    equal = (got == want).float().mean().item()
+    diff = (got.float() - want.float()).abs()
+    top = want.float().abs().max().item()
+    if not (torch.equal(got, fresh) and equal >= 0.999 and bool(
+            (diff <= 2.0 ** -7 * want.float().abs() + 1e-6 * top).all())):
+        raise AssertionError("Conv2d after an in-place weight update differs "
+                             "from the twin on the new weights")
+    print(f"Conv2d 64->64 after an in-place EMA update of its weight: packed "
+          f"anew, equal to the kernel on the new weights, {100 * equal:.4f} "
+          f"% of outputs bitwise equal to the twin's")
+
+
 def phase_conv3x3() -> dict:
     import torch
     import torch.nn.functional as F
@@ -438,22 +626,39 @@ def phase_conv3x3() -> dict:
     from hairci_torch.ops.conv3x3 import (
         conv3x3,
         conv3x3_reference,
-        kernel_weights,
+        kernel_route,
+        pack_weights,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     least_equal = 1.0
-    # borders and ragged tiles, other channel counts, no bias
+    took = {}
+
+    def check(x, w, b, stats):
+        route = kernel_route(x.shape[1], w.shape[0], x.dtype)
+        before = conv3x3.routes[route]
+        r = _check_conv(x, w, b, stats)
+        if conv3x3.routes[route] != before + 1:
+            raise AssertionError(f"conv3x3 did not take the {route} kernel")
+        took[f"{tuple(x.shape)}->{w.shape[0]} {str(x.dtype)[6:]}"] = route
+        worst[x.dtype] = max(worst[x.dtype], r["err"])
+        return r
+
+    # borders and ragged tiles, other channel counts, no bias; the last
+    # three are ragged for the tensor-core kernel's 8 x 28 tile
     for B, H, W, cin, cout, bias in ((3, 7, 9, 64, 64, True),
                                      (2, 17, 33, 24, 40, True),
                                      (1, 1, 1, 8, 8, False),
-                                     (2, 8, 16, 64, 128, False)):
+                                     (2, 8, 16, 64, 128, False),
+                                     (1, 1, 1, 64, 64, True),
+                                     (2, 9, 29, 64, 64, False),
+                                     (5, 30, 57, 64, 64, True)):
         for dtype in (torch.float32, torch.bfloat16):
             for stats in (False, True):
-                r = _check_conv(*_conv_inputs(gen, B, H, W, cin, cout, dtype,
-                                              bias), stats)
-                worst[dtype] = max(worst[dtype], r["err"])
+                check(*_conv_inputs(gen, B, H, W, cin, cout, dtype, bias),
+                      stats)
+    _check_conv2d_cache(gen)
     times = {}
     # the TPU tool's shape, the full-width embed's batch of layer1, and the
     # batch the kNN CLI gives the kernel on the main path
@@ -461,8 +666,7 @@ def phase_conv3x3() -> dict:
         for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             x, w, b = _conv_inputs(gen, B, 56, 56, 64, 64, dtype)
             for stats in (False, True):
-                r = _check_conv(x, w, b, stats)
-                worst[dtype] = max(worst[dtype], r["err"])
+                r = check(x, w, b, stats)
                 if dtype == torch.bfloat16:
                     least_equal = min(least_equal, r["equal"])
             # the same result on every run: no atomics in the statistics
@@ -475,34 +679,43 @@ def phase_conv3x3() -> dict:
                       + 64 * 4)
             bound, by = _bound(nbytes, 2.0 * B * 56 * 56 * 9 * 64 * 64, kind)
             wl, bl = w.to(dtype), b.to(dtype)
+            packed = pack_weights(w, dtype)
             with torch.no_grad():
+                # weights packed by the caller, as Conv2d hands them over
+                ms, host = _kernel_times(
+                    lambda: conv3x3(x, w, b, packed=packed))
+                pack_ms, pack_host = _kernel_times(
+                    lambda: conv3x3(x, w, b))
+                stats_ms, _ = _kernel_times(
+                    lambda: conv3x3(x, w, b, stats=True, packed=packed))
+                # the one PyTorch call that computes the same function
+                # (cuDNN); timed here, used nowhere in the port
+                lib_ms, lib_host = _kernel_times(
+                    lambda: F.conv2d(x, wl, bl, padding=1))
                 row = {
-                    "ms": _median_ms(lambda: conv3x3(x, w, b)),
-                    # the wrapper's own part of that: the weights' cast and
-                    # re-layout, small launches before the kernel's
-                    "weights_ms": _median_ms(
-                        lambda: kernel_weights(w, dtype)),
-                    "stats_ms": _median_ms(lambda: conv3x3(x, w, b,
-                                                           stats=True)),
+                    "ms": ms, "host_ms": host, "packing_ms": pack_ms,
+                    "packing_host_ms": pack_host, "stats_ms": stats_ms,
                     "plain_ms": _median_ms(lambda: conv3x3_reference(x, w,
                                                                      b)),
                     "plain_stats_ms": _median_ms(
                         lambda: conv3x3_reference(x, w, b, stats=True)),
-                    # the one PyTorch call that computes the same function
-                    # (cuDNN); timed here, used nowhere in the port
-                    "library_ms": _median_ms(lambda: F.conv2d(x, wl, bl,
-                                                              padding=1)),
-                    "bound_ms": bound, "bound_by": by}
+                    "library_ms": lib_ms, "library_host_ms": lib_host,
+                    "bound_ms": bound, "bound_by": by,
+                    "route": kernel_route(64, 64, dtype)}
             times[(B, kind)] = row
-            print(f"conv3x3 ({B}, 56, 56, 64) -> 64 {kind}: kernel "
-                  f"{row['ms']:.4f} ms ({100 * bound / row['ms']:.1f} % of "
-                  f"the bound {bound:.4f} ms, by {by}; {row['weights_ms']:.4f}"
-                  f" ms of it the weights' re-layout), with stats "
-                  f"{row['stats_ms']:.4f} ms; twin {row['plain_ms']:.4f} ms, "
-                  f"with stats {row['plain_stats_ms']:.4f} ms; F.conv2d "
-                  f"{row['library_ms']:.4f} ms "
-                  f"({100 * bound / row['library_ms']:.1f} % of the bound)")
-            del x, w, b, wl, bl
+            print(f"conv3x3 ({B}, 56, 56, 64) -> 64 {kind}, the "
+                  f"{row['route']} kernel, {BACK_TO_BACK} calls back to "
+                  f"back: {ms:.4f} ms on the card ({100 * bound / ms:.1f} % "
+                  f"of the bound {bound:.4f} ms, by {by}), {host:.4f} ms on "
+                  f"the host; packing the weights in the call {pack_ms:.4f} "
+                  f"/ {pack_host:.4f} ms; with stats {stats_ms:.4f} ms; twin "
+                  f"{row['plain_ms']:.4f} ms, with stats "
+                  f"{row['plain_stats_ms']:.4f} ms; F.conv2d {lib_ms:.4f} ms "
+                  f"on the card ({100 * bound / lib_ms:.1f} % of the bound), "
+                  f"{lib_host:.4f} ms on the host")
+            del x, w, b, wl, bl, packed
+    print("conv3x3 kernel by shape: " + "; ".join(
+        f"{k} {v}" for k, v in took.items()))
     print(f"conv3x3 vs twin: ok; max |err| f32 {worst[torch.float32]:.3g} "
           f"bf16 {worst[torch.bfloat16]:.3g}; bf16 outputs bitwise equal at "
           f"56x56x64: >= {100 * least_equal:.4f} %")
@@ -1098,10 +1311,54 @@ def phase_train_parity() -> None:
         raise AssertionError(f"card and CPU losses differ by {rel:.3g}")
 
 
+def kernel_times(root: str) -> int:
+    """``python3 chip_smoke.py --kernel-times [DIR]``: the card's and the
+    host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step
+    and of a 64 -> 64 ``Conv2d`` forward without gradient (bf16, 56 x 56),
+    for the ``hairci_torch`` package under DIR (default: this checkout), by
+    this script's back-to-back method. For comparing two checkouts on one
+    card: run it for each in turn, each in its own process. Prints one JSON
+    line; no other phase runs."""
+    sys.path.insert(0, os.path.abspath(root))
+    phase_device()
+    import torch
+
+    import hairci_torch
+    from hairci_torch.models.resnet import Conv2d
+    from hairci_torch.ops.bn_stats import bn_stats
+
+    pkg = os.path.dirname(os.path.abspath(hairci_torch.__file__))
+    if os.path.dirname(pkg) != os.path.abspath(root):
+        raise SystemExit(f"chip_smoke: hairci_torch came from {pkg}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = 3 * TRAIN_BATCH
+    shapes = resnet50_bn_shapes(rows, SIZE) + [(rows, 2048, 1),
+                                               (rows, 1024, 1)]
+    out = {"package": pkg, "calls": BACK_TO_BACK, "bn_stats": {}, "conv": {}}
+    card = host = 0.0
+    for m, c, n in shapes:
+        x = (torch.randn(m, c, device="cuda", generator=gen) * 2
+             + 1).bfloat16()
+        k, h = _kernel_times(lambda: bn_stats(x))
+        out["bn_stats"][f"{m}x{c}"] = [n, k, h]
+        card += n * k
+        host += n * h
+    out["bn_stats"]["step"] = [sum(n for *_, n in shapes), card, host]
+    conv = Conv2d(64, 64, 3, 1, 1, dtype=torch.bfloat16).cuda()
+    for B in (CLI_BATCH, KNN_BATCH, 256):
+        x = _conv_inputs(gen, B, 56, 56, 64, 64, torch.bfloat16)[0]
+        with torch.no_grad():
+            out["conv"][str(B)] = list(_kernel_times(lambda: conv(x)))
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "hairci_torch")):
         raise SystemExit("chip_smoke: hairci_torch/ not found beside "
                          "chip_smoke.py; run it from a checkout of the repo")
+    if sys.argv[1:2] == ["--kernel-times"]:
+        return kernel_times(sys.argv[2] if len(sys.argv) > 2 else REPO)
     sys.path.insert(0, REPO)
     device = phase_device()
     phase_build()
@@ -1120,12 +1377,15 @@ def main() -> int:
     phase_train_parity()
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
-    # ms, plain_ms, bound_ms and library_ms of a kernel are at one shape: the
-    # top-k at Q=1 on the f32 gallery, the rotation with blur at the step's
-    # batch, the 55 BN inputs of one SHAM forward summed, and the conv at
-    # the batch the kNN CLI ran it with (its launches are that run's), bf16. No single PyTorch call computes
-    # the first three (matmul + sort is two, grid_sample is no 3-shear, and
-    # var_mean gives other statistics), so their library_ms is null.
+    # ms (the card's time, calls back to back), host_ms (the wrapper's time
+    # on the host), plain_ms, bound_ms and library_ms of a kernel are at one
+    # shape: the top-k at Q=1 on the f32 gallery, the rotation with blur at
+    # the step's batch, the 55 BN inputs of one SHAM forward summed, and the
+    # conv at the batch the kNN CLI ran it with (its launches are that
+    # run's), bf16, weights packed by the caller as Conv2d does. No single
+    # PyTorch call computes the first three (matmul + sort is two,
+    # grid_sample is no 3-shear, and var_mean gives other statistics), so
+    # their library_ms is null.
     print(json.dumps({"kernels": [
         {"name": "topk_gallery_search", "route": "cuda",
          "source": "hairci_torch/ops/csrc/topk.cu",
@@ -1133,6 +1393,7 @@ def main() -> int:
          "launches": launches,
          "max_abs_err": topk["max_abs_err"],
          "ms": topk["times"][(1, "f32")][0],
+         "host_ms": topk["times"][(1, "f32")][2],
          "plain_ms": topk["times"][(1, "f32")][1],
          "bound_ms": topk["bound"][0], "bound_by": topk["bound"][1],
          "library_ms": None},
@@ -1142,6 +1403,7 @@ def main() -> int:
          "launches": train["launches"]["rotate_shear"],
          "max_abs_err": rot["max_abs_err"],
          "ms": rot["times"]["blur"][0],
+         "host_ms": rot["times"]["blur"][2],
          "plain_ms": rot["times"]["blur"][1],
          "bound_ms": rot["bound"][0], "bound_by": rot["bound"][1],
          "library_ms": None},
@@ -1151,6 +1413,7 @@ def main() -> int:
          "launches": train["launches"]["bn_stats"],
          "max_abs_err": bn["max_abs_err"],
          "ms": bn["step"][0],
+         "host_ms": bn["step"][2],
          "plain_ms": bn["step"][1],
          "bound_ms": bn["bound"][0], "bound_by": bn["bound"][1],
          "library_ms": None},
@@ -1159,7 +1422,8 @@ def main() -> int:
          "replaces": "tools/fused_conv_bn_bench.py:47",
          "launches": knn["launches"]["conv3x3"],
          "max_abs_err": kern["conv3x3"]["max_abs_err"],
-         "ms": conv["ms"], "plain_ms": conv["plain_ms"],
+         "ms": conv["ms"], "host_ms": conv["host_ms"],
+         "plain_ms": conv["plain_ms"],
          "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
          "library_ms": conv["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": device}))

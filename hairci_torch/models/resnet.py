@@ -20,7 +20,12 @@ the CUDA kernel on a card, its plain twin on the CPU. In ResNet-50 these are
 layer1's three ``conv2``; in ResNet-18/34 layer1's four/six convs. With grad
 mode on the same conv runs through cuDNN: the kernel has no backward (the
 JAX package has none for its TPU counterpart either). Every other conv is
-cuDNN's.
+cuDNN's. Such a conv keeps its weights in the kernel's layout
+(``ops.conv3x3.pack_weights``) between calls and packs them again when the
+weight has changed: in-place updates (the optimizer's, the EMA teacher's,
+``load_state_dict``) bump ``weight._version``, a move or cast changes the
+pointer, device or type. The cache is no parameter or buffer, so the state
+dict does not see it.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hairci_torch.models.norm import BatchNorm
-from hairci_torch.ops.conv3x3 import conv3x3
+from hairci_torch.ops.conv3x3 import conv3x3, pack_weights
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
@@ -53,12 +58,30 @@ class Conv2d(nn.Conv2d):
         self.dtype = dtype
         # the shape of the hand-written kernel (see the module docstring)
         self.to_kernel = (k, stride, padding, cin, cout) == (3, 1, 1, 64, 64)
+        self._packed_key = None
+        self._packed = self._packed_of = None
         with torch.no_grad():
             lecun_normal_(self.weight, cin * k * k)
 
+    def packed_weight(self) -> torch.Tensor:
+        """The weight in the conv3x3 kernel's layout, packed anew whenever
+        the weight's version, storage, device or the compute type changed
+        (a write through ``weight.data`` changes none of them and would be
+        missed: update the parameter itself, under ``torch.no_grad()``)."""
+        w = self.weight
+        key = (w._version, w.data_ptr(), self.dtype, w.device)
+        if key != self._packed_key:
+            self._packed = pack_weights(w, self.dtype)
+            # the key holds the storage it names: while it is cached no
+            # other tensor can come to lie at that address
+            self._packed_key = key
+            self._packed_of = w.detach()
+        return self._packed
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.to_kernel and not torch.is_grad_enabled():
-            return conv3x3(x.to(self.dtype), self.weight)
+            return conv3x3(x.to(self.dtype), self.weight,
+                           packed=self.packed_weight())
         return self._conv_forward(x.to(self.dtype),
                                   self.weight.to(self.dtype), None)
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled for Hopper
 (``sm_90a``) into ``_build/lib<name>-<hash>.so`` the first time it is used,
-from the sources in this checkout only. The hash covers the source and the
-flags, so an edited kernel is rebuilt and a stale library is never loaded.
+from the sources in this checkout only. The hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt
+and a stale library is never loaded.
 Nothing is built when this module is imported.
 """
 
@@ -37,6 +38,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

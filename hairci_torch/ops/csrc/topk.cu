@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;                  // warps per stage-1 block
@@ -260,9 +262,9 @@ cudaError_t launch(const float* q, const T* g, int Q, int N, int D, int k,
   const size_t merge_bytes = static_cast<size_t>(kWarps) * QT * K * 8;
   const size_t smem = q_bytes > merge_bytes ? q_bytes : merge_bytes;
   auto kernel = topk_partial_kernel<T, LOG_QT, K>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static size_t granted[kSmemAttrDevices] = {};
+  cudaError_t err = allow_dynamic_smem(reinterpret_cast<const void*>(kernel),
+                                       smem, granted);
   if (err != cudaSuccess) return err;
   const int rows_per_split = (N + splits - 1) / splits;
   const dim3 grid((Q + QT - 1) / QT, splits);

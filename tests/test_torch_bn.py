@@ -19,7 +19,9 @@ from hairci_torch.ops.bn_stats import (
     bn_stats,
     bn_stats_reference,
     plan,
+    vector_width,
 )
+from hairci_torch.ops import bn_stats as bn_mod
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -83,15 +85,106 @@ def test_bnstats_gradient_is_the_formula():
     torch.testing.assert_close(x.grad, ref.grad, rtol=1e-6, atol=1e-6)
 
 
+def _blocks(M, C, vec, sm_count=132):
+    """The launch ``plan`` gives: (blocks, row lanes, channel tiles, splits,
+    rows per split)."""
+    log_tg, splits, rows = plan(M, C, vec, sm_count)
+    tiles = -(-(-(-C // vec)) // (1 << log_tg))
+    return tiles * splits, bn_mod.THREADS >> log_tg, tiles, splits, rows
+
+
 def test_plan_fills_the_card():
-    # the tool's shape: 4 bf16 channel tiles of 64, 4 blocks per SM of 132
-    splits, rows = plan(512 * 56 * 56, 256, 2, 132)
-    assert 4 * splits >= 4 * 132 and splits * rows >= 512 * 56 * 56
+    # the tool's shape in bf16: tiles of 8 groups of 8 channels (one
+    # 128-byte line of a row), about 4 blocks per SM of 132
+    blocks, lanes, tiles, splits, rows = _blocks(512 * 56 * 56, 256, 8)
+    assert tiles == 4 and lanes == 32
+    assert 2 * 132 <= blocks <= 4 * 132 and splits * rows >= 512 * 56 * 56
+    # wide C makes channel tiles, not more partials per channel
+    blocks, _, tiles, splits, _ = _blocks(9408, 2048, 8)
+    assert tiles == 32 and 132 <= blocks <= 4 * 132 and splits <= 18
+    # no 16-byte loads: a warp on 32 neighbouring channels of one row
+    _, lanes, tiles, _, _ = _blocks(100_000, 100, 1)
+    assert lanes == 8 and tiles == 4
     # the head's (192, 2048), bf16 in the bf16 run and f32 in the f32 one:
-    # splits never below 64 rows
-    for vec in (2, 4):
-        splits, rows = plan(192, 2048, vec, 132)
-        assert rows >= 64 and (splits - 1) * rows < 192
+    # one stage, and still a block for every other SM or more
+    for vec in (8, 4):
+        blocks, _, tiles, splits, rows = _blocks(192, 2048, vec)
+        assert (splits, rows) == (1, 192) and blocks == tiles >= 32
+
+
+def _resnet50_bn_shapes(rows, size):
+    """(M, C) of every train-mode BN input of a ResNet-50 forward over
+    ``rows`` images of ``size`` px, then the projection head's two."""
+    out, hw = [(rows * (size // 2) ** 2, 64)], size // 4
+    for i, n_blocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** i
+        for j in range(n_blocks):
+            out.append((rows * hw * hw, f))              # bn1, before stride
+            if i > 0 and j == 0:
+                hw //= 2
+            out += [(rows * hw * hw, f), (rows * hw * hw, 4 * f)]
+            if j == 0:
+                out.append((rows * hw * hw, 4 * f))      # downsample
+    return out + [(rows, 2048), (rows, 1024)]
+
+
+_STEP_SHAPES = sorted(set(_resnet50_bn_shapes(192, 224)))
+
+
+def test_the_step_has_55_bn_inputs_of_14_shapes():
+    shapes = _resnet50_bn_shapes(192, 224)
+    assert len(shapes) == 55 and len(_STEP_SHAPES) == 14
+    assert min(_STEP_SHAPES) == (192, 1024)
+    assert max(_STEP_SHAPES) == (192 * 112 * 112, 64)
+
+
+@pytest.mark.parametrize("vec", [8, 4, 1])
+@pytest.mark.parametrize("shape", _STEP_SHAPES + [(1000, 7), (3, 64),
+                                                  (100_000, 64), (1, 1)])
+def test_plan_covers_every_row_once(shape, vec):
+    M, C = shape
+    if C % vec:
+        vec = 1
+    log_tg, splits, rows = plan(M, C, vec, 132)
+    tg = 1 << log_tg
+    assert 0 <= log_tg <= 5 and bn_mod.THREADS % tg == 0
+    # the splits partition [0, M): each non-empty, none beyond M
+    assert 1 <= splits <= 65535 and rows >= 1
+    assert (splits - 1) * rows < M <= splits * rows
+    # the channel tiles cover every group of ``vec`` channels, the last tile
+    # is not empty, and a tile never holds more than 256 channels (one
+    # thread adds one channel's lanes)
+    groups = -(-C // vec)
+    tiles = -(-groups // tg)
+    assert (tiles - 1) * tg < groups <= tiles * tg and tg * vec <= 256
+    small = M * C <= 1 << 19
+    if small:
+        # the head's and smaller: one stage, no partials
+        assert splits == 1
+    else:
+        # every block makes a few loop turns and the card is not flooded
+        assert tiles * splits <= 4 * 132 + tiles
+        if splits > 1:
+            assert rows >= 2 * bn_mod.UNROLL * (bn_mod.THREADS // tg)
+    if (M, C) in ((192, 2048), (192, 1024)):
+        assert small
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vector_width_needs_aligned_rows(dtype):
+    size = torch.empty(0, dtype=dtype).element_size()
+    wide = 16 // size
+    assert vector_width(64, size, 0) == wide
+    assert vector_width(2048, size, 4096) == wide
+    # a row that does not start on a 16-byte boundary: C or the pointer
+    assert vector_width(wide + 1, size, 0) == 1
+    assert vector_width(wide // 2, size, 0) == 1
+    assert vector_width(64, size, 16 + size) == 1
+    assert vector_width(64, size, 8) == 1
+    x = torch.zeros(64 * 32 + wide, dtype=dtype)
+    assert vector_width(32, size, x.data_ptr()) == wide
+    assert vector_width(32, size, x[1:].data_ptr()) == 1
+    assert vector_width(32, size, x[wide:].data_ptr()) == wide
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 6, 8), (12, 16)])
@@ -168,13 +261,22 @@ def test_cuda_kernel_matches_twin():
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.bfloat16, torch.float32):
         for M, C in ((4096, 256), (192, 2048), (1000, 7), (3, 64),
-                     (100_000, 64)):
+                     (100_000, 64), (9408, 2048), (37632, 1024),
+                     (150_528, 128), (5000, 24), (70_000, 1), (1, 1)):
             x = torch.randn(M, C, device="cuda", generator=gen).to(dtype)
+            before = bn_stats.launches
             s, sq = bn_stats(x)
             rs, rq = bn_stats_reference(x)
             torch.cuda.synchronize()
+            assert bn_stats.launches == before + 1
             torch.testing.assert_close(s, rs, rtol=1e-4, atol=1e-3)
             torch.testing.assert_close(sq, rq, rtol=1e-4, atol=1e-3)
+            # one launch, the last block adds in index order: the same bits
+            # on every run, and the tickets are back at zero
+            for _ in range(3):
+                s2, sq2 = bn_stats(x)
+                assert torch.equal(s, s2) and torch.equal(sq, sq2)
+            assert all(int(t.sum()) == 0 for t in bn_mod._counters.values())
     # a view whose pointer is not 16-byte aligned takes the scalar path
     x = torch.randn(64 * 32 + 1, device="cuda", generator=gen)[1:]
     s, _ = bn_stats(x.view(64, 32))

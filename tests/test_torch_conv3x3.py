@@ -17,7 +17,10 @@ from hairci_torch.ops import conv3x3 as conv_mod
 from hairci_torch.ops.conv3x3 import (
     conv3x3,
     conv3x3_reference,
+    kernel_route,
     kernel_weights,
+    pack_weights,
+    unpack_weights,
 )
 
 torch.set_num_threads(1)
@@ -173,6 +176,132 @@ def test_conv2d_routes_by_grad_mode(monkeypatch):
                                rtol=2 ** -7, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 64, 64), (1, 5, 7, 16, 24)])
+def test_packed_weights_feed_an_implicit_gemm(dtype, shape):
+    """The layout the kernels read: an implicit GEMM in numpy that takes the
+    packed weights tap by tap (tap = dy * 3 + dx; bf16 (Cout, Cin) rows for
+    the tensor-core kernel, f32 (Cin, Cout) for the FMA kernel) against the
+    JAX Pallas kernel in interpret mode."""
+    B, H, W, cin, cout = shape
+    tool = _bench_tool(*shape)
+    rng = np.random.default_rng(7 * H + cout)
+    x = rng.normal(size=(B, H, W, cin)).astype(np.float32)
+    w = (0.05 * rng.normal(size=(3, 3, cin, cout))).astype(np.float32)
+    xj, wj = (jnp.asarray(a, dtype=dtype) for a in (x, w))
+    with pltpu.force_tpu_interpret_mode():
+        out = tool.pallas_conv3x3.__wrapped__(
+            xj, wj, jnp.zeros(cout, dtype=dtype), stats=False)
+    ref = np.array(out[0].astype(jnp.float32)).reshape(B, H, W, cout)
+
+    tdtype = getattr(torch, dtype)
+    route = kernel_route(cin, cout, tdtype)
+    assert route == ("mma" if (dtype, cin, cout) == ("bfloat16", 64, 64)
+                     else "fma")
+    wt = torch.from_numpy(w).permute(3, 2, 0, 1)     # HWIO -> OIHW
+    packed = pack_weights(wt, tdtype)
+    assert packed.is_contiguous()
+    if route == "mma":
+        assert packed.dtype == torch.bfloat16
+        assert packed.shape == (9, cout, cin)
+    else:
+        assert packed.dtype == torch.float32 and packed.shape == (9, cin, cout)
+    taps = packed.float().numpy()
+    xv = np.array(xj.astype(jnp.float32))            # the rounded inputs
+    xp = np.pad(xv, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    acc = np.zeros((B * H * W, cout), np.float32)
+    for dy in range(3):
+        for dx in range(3):
+            a = xp[:, dy:dy + H, dx:dx + W, :].reshape(-1, cin)
+            tap = taps[dy * 3 + dx]
+            acc += a @ (tap.T if route == "mma" else tap)
+    ours = acc.reshape(B, H, W, cout)
+    if dtype == "bfloat16":
+        ours = torch.from_numpy(ours).bfloat16().float().numpy()
+        assert np.all(np.abs(ours - ref) <= _ulp_bf16(ref))
+    else:
+        np.testing.assert_allclose(ours, ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+    # and back: the twin on the CPU reads the packed weights when given them
+    assert torch.equal(unpack_weights(packed), wt.to(tdtype).float())
+    xt = torch.from_numpy(xv).to(tdtype).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        assert torch.equal(conv3x3(xt, wt, packed=packed), conv3x3(xt, wt))
+        with pytest.raises(ValueError, match="packed weights"):
+            conv3x3(xt, wt, packed=packed[:, :8])
+        stale = pack_weights(2 * wt, tdtype)
+        assert not torch.equal(conv3x3(xt, wt, packed=stale), conv3x3(xt, wt))
+
+
+def _ema_update(target, source, momentum=0.9):
+    """An EMA teacher's update, as the port's training state does it."""
+    with torch.no_grad():
+        t, o = list(target.parameters()), list(source.parameters())
+        torch._foreach_mul_(t, momentum)
+        torch._foreach_add_(t, torch._foreach_mul(o, 1.0 - momentum))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("update", ["mul_", "copy_", "optimizer", "ema",
+                                    "load_state_dict", "to_dtype"])
+def test_conv2d_packed_weights_follow_the_weight(update, dtype):
+    """The cached packed weights are rebuilt after every kind of update the
+    port makes, so the no-grad forward (packed weights) equals the grad-mode
+    forward (the parameter itself)."""
+    gen = torch.Generator().manual_seed(3)
+    conv = resnet.Conv2d(64, 64, 3, 1, 1, dtype=dtype)
+    x = torch.randn(2, 64, 6, 6, generator=gen).to(
+        memory_format=torch.channels_last)
+    keys = set(conv.state_dict())
+    assert keys == {"weight"}
+
+    def agree():
+        with torch.no_grad():
+            y = conv(x)
+        want = conv(x).detach()
+        assert torch.equal(conv.packed_weight(),
+                           pack_weights(conv.weight, dtype))
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(y.float(), want.float(),
+                                       rtol=2 ** -7, atol=1e-3)
+        return y
+
+    first = agree()
+    before = conv.packed_weight()
+    assert conv.packed_weight() is before        # no repack without a change
+    other = resnet.Conv2d(64, 64, 3, 1, 1, dtype=dtype)
+    if update == "mul_":
+        with torch.no_grad():
+            conv.weight.mul_(-1.5)
+    elif update == "copy_":
+        with torch.no_grad():
+            conv.weight.copy_(other.weight)
+    elif update == "optimizer":
+        opt = torch.optim.SGD(conv.parameters(), lr=0.5)
+        conv(x).square().sum().backward()
+        opt.step()
+    elif update == "ema":
+        _ema_update(conv, other, momentum=0.5)
+    elif update == "load_state_dict":
+        conv.load_state_dict(other.state_dict())
+    else:
+        conv.half().float()      # new storage, perhaps at the old address
+    assert conv.packed_weight() is not before
+    second = agree()
+    assert not torch.equal(first, second)
+    assert set(conv.state_dict()) == keys
+    # a copy of the module (the EMA teacher starts as one) packs its own
+    import copy
+    twin = copy.deepcopy(conv)
+    with torch.no_grad():
+        twin.weight.mul_(2.0)
+        assert torch.equal(twin.packed_weight(),
+                           pack_weights(twin.weight, dtype))
+        assert torch.equal(conv(x), second)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_twin():
     if not torch.cuda.is_available():
@@ -182,17 +311,22 @@ def test_cuda_kernel_matches_twin():
     for dtype in (torch.bfloat16, torch.float32):
         for B, H, W, cin, cout in ((4, 56, 56, 64, 64), (3, 7, 9, 64, 64),
                                    (2, 17, 33, 24, 40), (1, 1, 1, 8, 8),
-                                   (2, 8, 16, 64, 128)):
+                                   (2, 8, 16, 64, 128), (1, 1, 1, 64, 64),
+                                   (2, 9, 29, 64, 64), (5, 30, 57, 64, 64),
+                                   (40, 56, 56, 64, 64)):
             x = torch.randn(B, H, W, cin, device="cuda", generator=gen).to(
                 dtype).permute(0, 3, 1, 2)
             w = 0.05 * torch.randn(cout, cin, 3, 3, device="cuda",
                                    generator=gen)
             b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
             before = conv3x3.launches
+            route = kernel_route(cin, cout, dtype)
+            routed = conv3x3.routes[route]
             y, s, q = conv3x3(x, w, b, stats=True)
             ry, rs, rq = conv3x3_reference(x, w, b, stats=True)
             torch.cuda.synchronize()
             assert conv3x3.launches == before + 1
+            assert conv3x3.routes[route] == routed + 1
             assert y.is_contiguous(memory_format=torch.channels_last)
             top = ry.float().abs().max().item()
             if dtype == torch.float32:
@@ -205,7 +339,21 @@ def test_cuda_kernel_matches_twin():
                 torch.testing.assert_close(
                     a, r, rtol=1e-5, atol=1e-5 * r.abs().max().item())
             assert torch.equal(conv3x3(x, w, b), y)
+            # packed by the caller; and the statistics on every run the same
+            y2, s2, q2 = conv3x3(x, w, b, stats=True,
+                                 packed=pack_weights(w, dtype))
+            assert torch.equal(y2, y) and torch.equal(s2, s) and \
+                torch.equal(q2, q)
     with pytest.raises(ValueError, match="channels_last"):
         conv3x3(torch.randn(2, 8, 4, 4, device="cuda"),
                 torch.randn(8, 8, 3, 3, device="cuda"))
-    assert conv_mod._library()[1:] == (8, 16)
+    assert conv_mod._library()[1:] == ((8, 16), (8, 28))
+    assert conv3x3.routes["mma"] > 0 and conv3x3.routes["fma"] > 0
+    # a Conv2d on the card after an in-place update of its weight
+    conv = resnet.Conv2d(64, 64, 3, 1, 1, dtype=torch.bfloat16).cuda()
+    x = torch.randn(2, 12, 12, 64, device="cuda", generator=gen).permute(
+        0, 3, 1, 2)
+    with torch.no_grad():
+        conv(x)
+        conv.weight.mul_(0.5)
+        assert torch.equal(conv(x), conv3x3(x.bfloat16(), conv.weight))
