@@ -12,7 +12,10 @@ Phases, in order; any failure raises and exits non-zero:
                 occupancy that follows for the conv3x3 tensor-core kernel
                 and the bn_stats kernel.
   3. kernels -- each kernel against its plain PyTorch twin on the card, at the
-                shapes of the serving, training and evaluation paths. Two
+                shapes of the serving, training and evaluation paths (the
+                top-k on both its routes, each where plan() sends it and
+                at its edges, timed at Q = 1, 16, 64, 256 on the route
+                plan() takes). Two
                 times per kernel and shape: the card's (50 calls back to back
                 inside one pair of CUDA events while the host is ahead) and
                 the host's (perf_counter round one call, no synchronise);
@@ -26,8 +29,9 @@ Phases, in order; any failure raises and exits non-zero:
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
-                search a 103,945-row gallery; the kernels' launch counters
-                must show that /search went through them.
+                search a 103,945-row gallery, one query at a time and 256 in
+                one request; the kernels' launch counters must show that
+                /search went through both routes of the top-k.
   5. parity  -- the same weights in f32 on the CPU against bf16 on the card.
   6. train   -- ResNet-50 SHAM at 224, bf16, B=64, seeded random weights,
                 through ``hairci_torch.cli.mainpretrain.main`` for 3 epochs
@@ -55,8 +59,8 @@ Phases, in order; any failure raises and exits non-zero:
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
-With ``--kernel-times [DIR]`` it only times the bn_stats and Conv2d wrappers
-of the ``hairci_torch`` package under DIR (see ``kernel_times``).
+With ``--kernel-times [DIR]`` it only times the bn_stats, Conv2d and top-k
+wrappers of the ``hairci_torch`` package under DIR (see ``kernel_times``).
 """
 
 from __future__ import annotations
@@ -83,8 +87,8 @@ KERNELS = ("topk", "rotate", "bn_stats", "conv3x3")
 KNN_BATCH = 64           # the embed batch of the full-width kNN phases
 CLI_BATCH = 48           # the batch the kNN CLI is driven at (pads a last one)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM: HBM3
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32
-                                             # FMAs outside the tensor cores
+# dense tensor-core bf16 and TF32; f32 FMAs outside the tensor cores
+PEAK_FLOPS = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
 
 
 def _bound(nbytes: float, flops: float, kind: str) -> tuple:
@@ -222,9 +226,12 @@ def phase_build() -> None:
 
 
 # threads per block and dynamic shared memory of the kernels this script
-# reports the occupancy of (csrc/conv3x3.cu, csrc/bn_stats.cu)
+# reports the occupancy of (csrc/conv3x3.cu, csrc/bn_stats.cu, and
+# csrc/topk.cu's batched route for an f32 and a bf16 gallery)
 OCCUPANCY_OF = {"conv3x3_mma_kernel": (256, 155648),
-                "bn_stats_kernel": (256, 0)}
+                "bn_stats_kernel": (256, 0),
+                "topk_tc_kernelIf": (256, 206848),
+                "topk_tc_kernelIt": (256, 178176)}
 
 
 def _print_occupancy(entry: str, ptxas_line: str) -> None:
@@ -253,8 +260,11 @@ def _print_occupancy(entry: str, ptxas_line: str) -> None:
 # phase 3: kernel against its twin
 # ---------------------------------------------------------------------------
 
-def _check_topk(q, g, k, atol, n_valid=None, exact=False) -> float:
-    """Kernel against the twin on one input; returns the max score error."""
+def _check_topk(q, g, k, atol, n_valid=None, exact=False,
+                route=None) -> tuple:
+    """Kernel against the twin on one input; returns the max score error and
+    the route the search took. ``route``: the route ``plan`` must have
+    chosen."""
     import torch
 
     from hairci_torch.ops.topk import (
@@ -263,8 +273,14 @@ def _check_topk(q, g, k, atol, n_valid=None, exact=False) -> float:
     )
 
     n = g.shape[0] if n_valid is None else n_valid
+    before = dict(topk_gallery_search.routes)
     s, i = topk_gallery_search(q, g, k, n_valid=n_valid)
     torch.cuda.synchronize()
+    took = [r for r, c in topk_gallery_search.routes.items()
+            if c != before[r]]
+    if route is not None and took != [route]:
+        raise AssertionError(f"topk took {took}, not the {route} route "
+                             f"(Q={q.shape[0]} D={q.shape[1]})")
     kk = min(k, n)
     rs, ri = topk_gallery_search_reference(q, g[:n], min(kk + 1, n))
     if s.shape != (q.shape[0], kk) or i.dtype != torch.int64:
@@ -272,7 +288,7 @@ def _check_topk(q, g, k, atol, n_valid=None, exact=False) -> float:
     err = (s - rs[:, :kk]).abs().max().item()
     if not err <= atol:
         raise AssertionError(f"topk scores differ by {err} > {atol} "
-                             f"(N={n} k={k} {g.dtype})")
+                             f"(Q={q.shape[0]} N={n} k={k} {g.dtype})")
     if exact:
         same = torch.equal(i, ri[:, :kk])
     else:
@@ -284,12 +300,39 @@ def _check_topk(q, g, k, atol, n_valid=None, exact=False) -> float:
         clear = torch.minimum(prev, nxt) > 1e-5
         same = bool(((i == ri[:, :kk]) | ~clear).all())
     if not same:
-        raise AssertionError(f"topk indices differ (N={n} k={k} {g.dtype})")
-    return err
+        raise AssertionError(f"topk indices differ (Q={q.shape[0]} N={n} "
+                             f"k={k} {g.dtype})")
+    return err, took[0]
+
+
+# queries timed, each on the route plan() takes: the serving path's single
+# query, the batched route's threshold, and the TPU kernel's design point
+TOPK_TIMED_Q = (1, 16, 64, 256)
+# --kernel-times: the sweep the threshold was set from
+TOPK_SWEEP_Q = (1, 4, 8, 16, 32, 64, 256)
+
+
+def _topk_bound(Q: int, kind: str, route: str) -> tuple:
+    """The least time of a route's work at Q x 103,945 x 768: gallery and
+    queries read once, k = 5 scores and indices written; one f32 FMA per
+    product (fma), or three tensor-core products (mma: TF32 for an f32
+    gallery, bf16 for a bf16 one)."""
+    nbytes = ((4 if kind == "f32" else 2) * GALLERY_ROWS * WIDTH
+              + 4 * Q * WIDTH + Q * 5 * 12)
+    flops = 2.0 * Q * GALLERY_ROWS * WIDTH
+    if route == "fma":
+        return _bound(nbytes, flops, "f32")
+    return _bound(nbytes, 3 * flops, "tf32" if kind == "f32" else "bf16")
 
 
 def phase_topk() -> dict:
     import torch
+
+    from hairci_torch.ops.topk import (
+        BATCHED_MIN_Q,
+        topk_gallery_search,
+        topk_gallery_search_reference,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -298,25 +341,29 @@ def phase_topk() -> dict:
         x = torch.randn(n, d, device=dev, generator=gen)
         return x / x.norm(dim=1, keepdim=True)
 
+    def near(g, Q):
+        # queries near gallery rows, so each has a clear nearest neighbour
+        rows = torch.randint(0, g.shape[0], (Q,), device=dev, generator=gen)
+        q = g[rows] + 0.3 * unit(Q, g.shape[1]) / g.shape[1] ** 0.5
+        return (q / q.norm(dim=1, keepdim=True)).contiguous()
+
     g32 = unit(GALLERY_ROWS)
     galleries = {"f32": (g32, 1e-5), "bf16": (g32.bfloat16(), 1e-4)}
-    max_err = {"f32": 0.0, "bf16": 0.0}
+    max_err = {(r, name): 0.0 for r in ("fma", "mma") for name in galleries}
+
+    def check(name, *args, **kw):
+        err, took = _check_topk(*args, **kw)
+        max_err[(took, name)] = max(max_err[(took, name)], err)
+
     for Q in (1, 256):
-        # queries near gallery rows, so each has a clear nearest neighbour
-        rows = torch.randint(0, GALLERY_ROWS, (Q,), device=dev, generator=gen)
-        q = g32[rows] + 0.3 * unit(Q) / WIDTH ** 0.5
-        q = (q / q.norm(dim=1, keepdim=True)).contiguous()
+        q = near(g32, Q)
         for name, (g, atol) in galleries.items():
             for k in (1, 5, 8, 16):
-                err = _check_topk(q, g, k, atol)
-                max_err[name] = max(max_err[name], err)
-            err = _check_topk(q, g, 5, atol, n_valid=GALLERY_ROWS - 1000)
-            max_err[name] = max(max_err[name], err)
+                check(name, q, g, k, atol)
+            check(name, q, g, 5, atol, n_valid=GALLERY_ROWS - 1000)
     # exact ties: rows i and i + half are equal, the lower index must win
     half = unit(2048)
     dup = torch.cat([half, half]).contiguous()
-    from hairci_torch.ops.topk import topk_gallery_search
-
     _check_topk(half[:64].contiguous(), dup, 4, 1e-5, exact=True)
     _, i = topk_gallery_search(half[:64].contiguous(), dup, 2)
     want = torch.arange(64, device=dev)
@@ -324,29 +371,58 @@ def phase_topk() -> dict:
         raise AssertionError("topk tie order: the lower index must win")
     # fewer rows than k
     _check_topk(unit(4), unit(3), 8, 1e-5, exact=True)
-    print(f"topk vs twin: ok; max |score err| f32 {max_err['f32']:.3g} "
-          f"bf16 {max_err['bf16']:.3g}")
 
-    from hairci_torch.ops.topk import topk_gallery_search_reference
+    # the batched route's edges: Q at the threshold and just below it, a
+    # ragged n_valid, fewer rows than k, D = 96 (a K slice and a zero-filled
+    # half) and D = 45 (not a 16-byte multiple: the fma route), ties in a
+    # bf16 gallery
+    for name, (g, atol) in galleries.items():
+        for Q, route in ((BATCHED_MIN_Q, "mma"), (BATCHED_MIN_Q - 1, "fma"),
+                         (300, "mma")):
+            check(name, near(g32, Q), g, 8, atol, route=route)
+        check(name, near(g32, 256), g, 16, atol,
+              n_valid=GALLERY_ROWS // 2 + 1, route="mma")
+        dtype = g.dtype
+        _check_topk(unit(BATCHED_MIN_Q), unit(5).to(dtype), 8, atol,
+                    exact=True, route="mma")
+        _check_topk(unit(130), unit(200).to(dtype), 16, atol, route="mma")
+        for D, route in ((96, "mma"), (45, "fma")):
+            small = unit(20_000, D).to(dtype)
+            check(name, near(small.float(), 256), small, 5, atol, route=route)
+        dup16 = dup.to(dtype)
+        _check_topk(half[:256].contiguous(), dup16, 4, atol, exact=True,
+                    route="mma")
+        _, i = topk_gallery_search(half[:256].contiguous(), dup16, 2)
+        want = torch.arange(256, device=dev)
+        if not (torch.equal(i[:, 0], want)
+                and torch.equal(i[:, 1], want + 2048)):
+            raise AssertionError(f"topk tie order at Q=256 {name}: the lower "
+                                 "index must win")
+    print(f"topk vs twin: ok (both routes, threshold Q={BATCHED_MIN_Q}); max "
+          "|score err| " + ", ".join(f"{r} {name} {e:.3g}"
+                                     for (r, name), e in max_err.items()))
 
     times = {}
-    for Q in (1, 256):
+    for Q in TOPK_TIMED_Q:
         q = unit(Q)
         for name, (g, _) in galleries.items():
+            twin = _median_ms(lambda: topk_gallery_search_reference(q, g, 5),
+                              runs=15)
+            before = dict(topk_gallery_search.routes)
             kern, host = _kernel_times(lambda: topk_gallery_search(q, g, 5))
-            twin = _median_ms(lambda: topk_gallery_search_reference(q, g, 5))
-            times[(Q, name)] = (kern, twin, host)
-            print(f"topk Q={Q} N={GALLERY_ROWS} D={WIDTH} k=5 {name}: "
-                  f"kernel {kern:.4f} ms on the card ({BACK_TO_BACK} calls "
-                  f"back to back), {host:.4f} ms on the host; twin "
-                  f"{twin:.4f} ms")
+            route, = [r for r, c in topk_gallery_search.routes.items()
+                      if c != before[r]]
+            bound = _topk_bound(Q, name, route)
+            times[(Q, name)] = (kern, twin, host, bound, route)
+            print(f"topk Q={Q} N={GALLERY_ROWS} D={WIDTH} k=5 {name}, "
+                  f"{route} route: {kern:.4f} ms on the card "
+                  f"({BACK_TO_BACK} calls back to back, "
+                  f"{100 * bound[0] / kern:.1f} % of its bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}), {host:.4f} ms on "
+                  f"the host; twin {twin:.4f} ms")
     del g32, galleries
     torch.cuda.empty_cache()
-    # Q=1, f32 gallery: the gallery and the query read once, k scores and
-    # indices written; one f32 FMA per gallery value
-    bound = _bound(4 * (GALLERY_ROWS + 1) * WIDTH + 5 * 12,
-                   2.0 * GALLERY_ROWS * WIDTH, "f32")
-    return {"max_abs_err": max_err["f32"], "times": times, "bound": bound}
+    return {"max_abs_err": max_err, "times": times}
 
 
 def resnet50_bn_shapes(rows: int, size: int) -> list:
@@ -747,6 +823,8 @@ def _reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
     for fn in _wrappers().values():
         fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
 
 
 def _counts() -> dict:
@@ -787,6 +865,7 @@ def phase_serve(workdir: str):
     import numpy as np
     import torch
 
+    from hairci_torch.ops.topk import topk_gallery_search
     from hairci_torch.retrieval.encoders import HairEncoder
     from hairci_torch.serve.api import serve
 
@@ -853,15 +932,38 @@ def phase_serve(workdir: str):
         latencies.sort()
         print(f"/search by embedding, {GALLERY_ROWS} rows, k=5: p50 "
               f"{latencies[10]:.3f} ms over 20 requests (HTTP round trip)")
+        # one batched search: 256 stored rows, each must find itself
+        rows = np.arange(256) * (GALLERY_ROWS // 256)
+        batch = stored[torch.from_numpy(rows).to(stored.device)]
+        payload = {"embedding": batch.float().cpu().numpy().tolist(), "k": 5}
+        before = topk_gallery_search.routes["mma"]
+        t0 = time.perf_counter()
+        res = _request(server, "/search", payload)
+        batched_ms = (time.perf_counter() - t0) * 1e3
+        searches += 1
+        top1 = [row[0] for row in res["paths"]]
+        index_paths = server.service.index.paths
+        if top1 != [index_paths[r] for r in rows] or np.asarray(
+                res["scores"]).shape != (256, 5):
+            raise AssertionError("batched /search: a rank 1 is not the "
+                                 "query's own row")
+        if topk_gallery_search.routes["mma"] != before + 1:
+            raise AssertionError("batched /search did not take the mma "
+                                 "route of the top-k kernel")
+        print(f"/search by embedding, 256 x {WIDTH} in one request, k=5: "
+              f"{batched_ms:.3f} ms HTTP round trip; rank 1 is each row "
+              f"itself; served by the mma route")
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    launches = _counts()["topk_gallery_search"]
+    launches = dict(topk_gallery_search.routes)
     print(f"topk kernel launches during the serve run: {launches} for "
           f"{searches} searches")
-    if launches < searches:
-        raise AssertionError("/search did not go through the top-k kernel")
+    if sum(launches.values()) != _counts()["topk_gallery_search"] or \
+            sum(launches.values()) < searches or min(launches.values()) < 1:
+        raise AssertionError("/search did not go through both routes of the "
+                             "top-k kernel")
 
     batch = encoder._preprocess(
         [paths[i % len(paths)] for i in range(64)])
@@ -1313,10 +1415,13 @@ def phase_train_parity() -> None:
 
 def kernel_times(root: str) -> int:
     """``python3 chip_smoke.py --kernel-times [DIR]``: the card's and the
-    host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step
-    and of a 64 -> 64 ``Conv2d`` forward without gradient (bf16, 56 x 56),
-    for the ``hairci_torch`` package under DIR (default: this checkout), by
-    this script's back-to-back method. For comparing two checkouts on one
+    host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step,
+    of a 64 -> 64 ``Conv2d`` forward without gradient (bf16, 56 x 56), and of
+    ``topk_gallery_search`` at k=5 over a 103,945 x 768 gallery (f32 and
+    bf16) for each Q of ``TOPK_SWEEP_Q`` on the route the package picks
+    (recorded where the package counts its routes), for the
+    ``hairci_torch`` package under DIR (default: this checkout), by this
+    script's back-to-back method. For comparing two checkouts on one
     card: run it for each in turn, each in its own process. Prints one JSON
     line; no other phase runs."""
     sys.path.insert(0, os.path.abspath(root))
@@ -1326,6 +1431,7 @@ def kernel_times(root: str) -> int:
     import hairci_torch
     from hairci_torch.models.resnet import Conv2d
     from hairci_torch.ops.bn_stats import bn_stats
+    from hairci_torch.ops.topk import topk_gallery_search
 
     pkg = os.path.dirname(os.path.abspath(hairci_torch.__file__))
     if os.path.dirname(pkg) != os.path.abspath(root):
@@ -1334,7 +1440,8 @@ def kernel_times(root: str) -> int:
     rows = 3 * TRAIN_BATCH
     shapes = resnet50_bn_shapes(rows, SIZE) + [(rows, 2048, 1),
                                                (rows, 1024, 1)]
-    out = {"package": pkg, "calls": BACK_TO_BACK, "bn_stats": {}, "conv": {}}
+    out = {"package": pkg, "calls": BACK_TO_BACK, "bn_stats": {}, "conv": {},
+           "topk": {}}
     card = host = 0.0
     for m, c, n in shapes:
         x = (torch.randn(m, c, device="cuda", generator=gen) * 2
@@ -1349,6 +1456,16 @@ def kernel_times(root: str) -> int:
         x = _conv_inputs(gen, B, 56, 56, 64, 64, torch.bfloat16)[0]
         with torch.no_grad():
             out["conv"][str(B)] = list(_kernel_times(lambda: conv(x)))
+    g32 = torch.randn(GALLERY_ROWS, WIDTH, device="cuda", generator=gen)
+    g32 /= g32.norm(dim=1, keepdim=True)
+    for name, g in (("f32", g32), ("bf16", g32.bfloat16())):
+        for Q in TOPK_SWEEP_Q:
+            q = g32[:Q].contiguous()
+            before = dict(getattr(topk_gallery_search, "routes", {}))
+            times = list(_kernel_times(lambda: topk_gallery_search(q, g, 5)))
+            took = [r for r, c in getattr(topk_gallery_search, "routes",
+                                          {}).items() if c != before[r]]
+            out["topk"][f"{Q} {name}"] = times + took
     print(json.dumps(out))
     return 0
 
@@ -1379,24 +1496,32 @@ def main() -> int:
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
     # ms (the card's time, calls back to back), host_ms (the wrapper's time
     # on the host), plain_ms, bound_ms and library_ms of a kernel are at one
-    # shape: the top-k at Q=1 on the f32 gallery, the rotation with blur at
-    # the step's batch, the 55 BN inputs of one SHAM forward summed, and the
-    # conv at the batch the kNN CLI ran it with (its launches are that
-    # run's), bf16, weights packed by the caller as Conv2d does. No single
-    # PyTorch call computes the first three (matmul + sort is two,
-    # grid_sample is no 3-shear, and var_mean gives other statistics), so
-    # their library_ms is null.
-    print(json.dumps({"kernels": [
-        {"name": "topk_gallery_search", "route": "cuda",
-         "source": "hairci_torch/ops/csrc/topk.cu",
-         "replaces": "hairci/ops/topk_pallas.py:43",
-         "launches": launches,
-         "max_abs_err": topk["max_abs_err"],
-         "ms": topk["times"][(1, "f32")][0],
-         "host_ms": topk["times"][(1, "f32")][2],
-         "plain_ms": topk["times"][(1, "f32")][1],
-         "bound_ms": topk["bound"][0], "bound_by": topk["bound"][1],
-         "library_ms": None},
+    # shape: the top-k at Q=1 (its fma route) and, as
+    # topk_gallery_search_batched, at Q=256 (its mma route, the batched
+    # /search), both on the f32 gallery, each with its own bound, its own
+    # route's score error and launches in the serve run; the rotation with blur at the step's
+    # batch, the 55 BN inputs of one SHAM forward summed, and the conv at
+    # the batch the kNN CLI ran it with (its launches are that run's), bf16,
+    # weights packed by the caller as Conv2d does. No single PyTorch call
+    # computes the first three (matmul + sort is two, grid_sample is no
+    # 3-shear, and var_mean gives other statistics), so their library_ms is
+    # null.
+    topk_rows = []
+    for name, route, Q in (("topk_gallery_search", "fma", 1),
+                           ("topk_gallery_search_batched", "mma", 256)):
+        kern_ms, plain_ms, host_ms, bound, took = topk["times"][(Q, "f32")]
+        if took != route:
+            raise AssertionError(f"topk at Q={Q} took the {took} route")
+        topk_rows.append(
+            {"name": name, "route": "cuda",
+             "source": "hairci_torch/ops/csrc/topk.cu",
+             "replaces": "hairci/ops/topk_pallas.py:43",
+             "launches": launches[route],
+             "max_abs_err": topk["max_abs_err"][(route, "f32")],
+             "ms": kern_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+             "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": None})
+    print(json.dumps({"kernels": topk_rows + [
         {"name": "rotate_shear", "route": "cuda",
          "source": "hairci_torch/ops/csrc/rotate.cu",
          "replaces": "hairci/ops/rotate_pallas.py:70",

@@ -29,6 +29,7 @@ import torch
 from hairci_torch.cli.mainpretrain import set_seed
 from hairci_torch.data import DataLoader, load_manifest
 from hairci_torch.eval.classifier import Classifier
+from hairci_torch.eval.knn import full_f32
 from hairci_torch.models.convert import load_torch_state_dict, \
     sham2_state_dict
 from hairci_torch.ssl import build_recipe
@@ -134,7 +135,8 @@ def main(argv=None) -> Classifier:
 
     clf = Classifier(embed_fn, *loaders, args.save_path,
                      batch_size=args.batch_size, device=device)
-    clf.knn_eval()
+    with full_f32(args.dtype):
+        clf.knn_eval()
     return clf
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from hairci_torch.data import DataLoader, load_manifest
+from hairci_torch.eval.knn import full_f32
 from hairci_torch.ssl import build_recipe
 from hairci_torch.train.engine import Trainer
 from hairci_torch.utils.config import parse_pretrain_args
@@ -61,8 +62,9 @@ def main(argv=None) -> Trainer:
         mode="raw_resize", shuffle=True, drop_last=True, seed=args.seed,
         num_workers=args.num_workers)
     recipe = build_recipe_from_args(args, num_batches=len(loader))
-    trainer = Trainer(recipe, loader, args, device)
-    trainer.train()
+    with full_f32(args.dtype):
+        trainer = Trainer(recipe, loader, args, device)
+        trainer.train()
     return trainer
 
 

@@ -39,6 +39,24 @@ def full_f32_matmul():
         torch.set_float32_matmul_precision(before)
 
 
+@contextlib.contextmanager
+def full_f32(dtype: str):
+    """``--dtype float32`` means full f32 on the card for the run: cuDNN's
+    convolutions (which allow TF32 by default) and f32 matmuls without TF32,
+    as layer1's conv3x3 kernel and the kNN compute. The flags are restored
+    afterwards; bf16 runs are left as they are."""
+    if dtype != "float32":
+        yield
+        return
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with full_f32_matmul():
+            yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
 def similarities(query: torch.Tensor, gallery: torch.Tensor) -> torch.Tensor:
     with full_f32_matmul():
         return query @ gallery.T

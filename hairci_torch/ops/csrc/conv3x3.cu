@@ -85,6 +85,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "smem_attr.cuh"
 
 namespace {
@@ -348,21 +349,6 @@ static_assert(kMPixels <= kMWarps / 4 * 2 * 64, "m64 blocks cover the tile");
 static_assert(kMWeightBytes % 1024 == 0, "128-byte swizzle atoms");
 static_assert(kMHaloW <= kMHaloStride, "halo row stride");
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -534,7 +520,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
 
   int it = 0;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
-    cp_async_wait_all();
+    cp_async_wait<0>();
     // what the copies wrote, before the MMAs read the weights by descriptor
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();  // tile `tile` has landed; tile - grid has been consumed
@@ -631,7 +617,7 @@ __global__ void __launch_bounds__(kMThreads, 1)
 
   // lanes of equal t hold the same channels: add them over g by a fixed
   // tree, then the warps in order
-  cp_async_wait_all();
+  cp_async_wait<0>();
   __syncthreads();
   float* red = reinterpret_cast<float*>(smem + kMWeightBytes);
 #pragma unroll

@@ -7,8 +7,10 @@ A flat inner-product index over L2-normalised embeddings held on the device:
 
 For k <= 8 with the kernel on, search is the hand-written CUDA kernel
 (``hairci_torch/ops/topk.py``), which never writes the (Q, N) score matrix.
-Otherwise the gallery is scored in chunks with ``torch.matmul`` and the
-per-chunk top-k are merged, so memory holds one (Q, chunk) tile at a time.
+Otherwise the gallery is scored in chunks with ``torch.matmul`` in full f32
+(whatever the caller's global matmul precision, as the kernel and the kNN
+do) and the per-chunk top-k are merged, so memory holds one (Q, chunk) tile
+at a time.
 The kernel masks its own ragged edge, so the gallery is stored unpadded.
 Persistence is ``embeddings.npy`` + ``image_paths.txt``, byte-compatible with
 the JAX package: an index saved by one loads in the other.
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from hairci_torch.eval.features import l2_normalize
+from hairci_torch.eval.knn import full_f32_matmul
 from hairci_torch.ops.topk import topk_gallery_search
 from hairci_torch.utils.device import DeviceLike, resolve_device
 
@@ -85,7 +88,8 @@ class GalleryIndex:
         scores = indices = None
         for start in range(0, n, self.chunk):
             block = self.embeddings[start:min(start + self.chunk, n)]
-            s = torch.matmul(q, block.float().T)
+            with full_f32_matmul():
+                s = torch.matmul(q, block.float().T)
             s, i = _stable_topk(s, min(k, block.shape[0]))
             i = i + start
             if scores is None:
