@@ -25,7 +25,10 @@ Phases, in order; any failure raises and exits non-zero:
                 and conv3x3 are also run twice for equal bits; conv3x3
                 reports which of its two kernels each shape took, and a
                 Conv2d whose weight was updated in place must read the new
-                weights.
+                weights. Rotate is held bitwise without the blur and within
+                2e-6 with it at the step's batch, at seven odd shapes
+                (contiguous and in NCHW order) and on the step's own
+                strided SimCLR view, and timed on both routes.
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
@@ -36,7 +39,9 @@ Phases, in order; any failure raises and exits non-zero:
   6. train   -- ResNet-50 SHAM at 224, bf16, B=64, seeded random weights,
                 through ``hairci_torch.cli.mainpretrain.main`` for 3 epochs
                 of 2 steps (warmup, mine, mined) on the repo's 64 hair crops
-                listed twice; the launch counters must show every step went
+                listed twice (the strides of the view the step hands to
+                positive_transform are printed); the launch counters must
+                show every step went
                 through the rotate kernel and every train-mode BN through the
                 stats kernel, and every forward without gradient (the EMA
                 teacher's) through the conv3x3 kernel. Then 10 timed warmup
@@ -59,8 +64,9 @@ Phases, in order; any failure raises and exits non-zero:
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
-With ``--kernel-times [DIR]`` it only times the bn_stats, Conv2d and top-k
-wrappers of the ``hairci_torch`` package under DIR (see ``kernel_times``).
+With ``--kernel-times [DIR]`` it only times the bn_stats, Conv2d, top-k and
+rotate wrappers of the ``hairci_torch`` package under DIR (see
+``kernel_times``).
 """
 
 from __future__ import annotations
@@ -447,9 +453,56 @@ def resnet50_bn_shapes(rows: int, size: int) -> list:
     return [(m, c, n) for (m, c), n in shapes.items()]
 
 
+# the shapes the rotate kernel's band tiling cares about, both routes, as in
+# tests/test_torch_rotate.py: (B, H, W, C, max_degrees, fill)
+ROTATE_ODD = ((5, 33, 31, 3, 15.0, 0.0), (7, 32, 32, 1, 15.0, 0.0),
+              (7, 17, 15, 4, 15.0, -1.0), (7, 5, 12, 3, 15.0, 0.0),
+              (7, 40, 6, 3, 45.0, 0.5), (7, 9, 7, 5, 15.0, 0.0),
+              (7, 3, 2, 1, 45.0, -1.0))
+
+
+def _step_view(gen, B: int):
+    """The positive view the SHAM step hands to ``positive_transform``: the
+    port's SimCLR view of a uint8 batch on the card, in the strides its last
+    op left."""
+    import torch
+
+    from hairci_torch.aug.pipelines import simclr_transform
+
+    view = simclr_transform(SIZE).views[0]
+    images = torch.randint(0, 256, (B, SIZE + 32, SIZE + 32, 3),
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    return view.apply(images, view.draw(cpu_gen, B, SIZE + 32, SIZE + 32))
+
+
+def _check_rotate(x, theta, sigma, max_degrees, fill=0.0) -> dict:
+    """The kernel against the twin on both routes: bitwise without the blur,
+    within 2e-6 with it. Returns each route's max |error|."""
+    import torch
+
+    from hairci_torch.ops.rotate import rotate_shear, rotate_shear_reference
+
+    err = {}
+    for key, blur in (("plain", None), ("blur", sigma)):
+        got = rotate_shear(x, theta, fill, max_degrees, blur)
+        want = rotate_shear_reference(x, theta, fill, max_degrees, blur)
+        torch.cuda.synchronize()
+        err[key] = (got - want).abs().max().item()
+        shape = tuple(x.shape)
+        if blur is None and not torch.equal(got, want):
+            raise AssertionError(f"rotate differs from its twin at {shape}, "
+                                 f"strides {x.stride()}: {err[key]}")
+        if not err[key] <= 2e-6:
+            raise AssertionError(f"rotate+blur differs by {err[key]} > 2e-6 "
+                                 f"at {shape}, strides {x.stride()}")
+    return err
+
+
 def phase_rotate() -> dict:
     import torch
 
+    from hairci_torch.aug.pipelines import positive_transform
     from hairci_torch.ops.rotate import rotate_shear, rotate_shear_reference
 
     dev = torch.device("cuda")
@@ -461,23 +514,26 @@ def phase_rotate() -> dict:
     theta = torch.linspace(-15, 15, B, device=dev) * (math.pi / 180)
     theta[B // 2] = -0.24870999
     sigma = torch.rand(B, device=dev, generator=gen) * 0.4 + 0.1
-    err = {}
-    for blur in (None, sigma):
-        got = rotate_shear(x, theta, max_degrees=15.0, blur_sigma=blur)
-        want = rotate_shear_reference(x, theta, max_degrees=15.0,
-                                      blur_sigma=blur)
-        torch.cuda.synchronize()
-        key = "blur" if blur is not None else "plain"
-        err[key] = (got - want).abs().max().item()
-        if blur is None and not torch.equal(got, want):
-            raise AssertionError(f"rotate differs from its twin: {err[key]}")
-        if not err[key] <= 2e-6:
-            raise AssertionError(f"rotate+blur differs by {err[key]} > 2e-6")
-    odd = torch.randn(5, 33, 31, 3, device=dev, generator=gen)
-    if not torch.equal(rotate_shear(odd, theta[:5], max_degrees=15.0),
-                       rotate_shear_reference(odd, theta[:5],
-                                              max_degrees=15.0)):
-        raise AssertionError("rotate differs from its twin at 33 x 31")
+    err = _check_rotate(x, theta, sigma, 15.0)
+    for b, h, w, c, max_deg, fill in ROTATE_ODD:
+        xo = torch.randn(b, h, w, c, device=dev, generator=gen)
+        m = max_deg * math.pi / 180
+        to = (torch.rand(b, device=dev, generator=gen) * 2 - 1) * m
+        to[:4] = torch.tensor([m, -0.24870999, -1.5 * m, 2.0 * m])
+        so = torch.rand(b, device=dev, generator=gen) * 0.4 + 0.1
+        for xin in (xo, xo.permute(0, 3, 1, 2).contiguous().permute(
+                0, 2, 3, 1)):
+            for key, e in _check_rotate(xin, to, so, max_deg, fill).items():
+                err[key] = max(err[key], e)
+    print(f"rotate vs twin at {len(ROTATE_ODD)} odd shapes, contiguous and "
+          f"in NCHW order: ok")
+    # the step's own input: the SimCLR view, strided as the step sees it
+    xv = _step_view(gen, B)
+    print(f"rotate input of the step (SimCLR view at {SIZE}): shape "
+          f"{tuple(xv.shape)} strides {xv.stride()} contiguous "
+          f"{xv.is_contiguous()}")
+    for key, e in _check_rotate(xv, theta, sigma, 15.0).items():
+        err[key] = max(err[key], e)
     times = {}
     for key, blur in (("plain", None), ("blur", sigma)):
         kern, host = _kernel_times(lambda: rotate_shear(
@@ -485,14 +541,30 @@ def phase_rotate() -> dict:
         twin = _median_ms(lambda: rotate_shear_reference(
             x, theta, max_degrees=15.0, blur_sigma=blur))
         times[key] = (kern, twin, host)
+    # with the blur: the batch read and written once, angles and sigmas read;
+    # per value two 3-tap passes of 5 operations each. Without: no arithmetic
+    bounds = {"plain": _bound(2 * x.numel() * 4 + B * 4, 0.0, "f32"),
+              "blur": _bound(2 * x.numel() * 4 + 2 * B * 4,
+                             10.0 * x.numel(), "f32")}
+    for key, (kern, twin, host) in times.items():
+        bound = bounds[key]
         print(f"rotate {B}x{SIZE}x{SIZE}x3 f32 {key}: kernel {kern:.4f} ms "
-              f"on the card, {host:.4f} ms on the host; twin {twin:.4f} ms, "
-              f"max |err| {err[key]:.3g}")
+              f"on the card ({100 * bound[0] / kern:.1f} % of its bound "
+              f"{bound[0]:.4f} ms by {bound[1]}), {host:.4f} ms on the host; "
+              f"twin {twin:.4f} ms, max |err| {err[key]:.3g}")
+    clone_ms = _kernel_times(lambda: x.clone())[0]
+    print(f"the same bytes moved by a copy (torch clone of the batch, no "
+          f"rotation): {clone_ms:.4f} ms on the card")
+    d = {"theta": theta, "sigma": sigma}
+    step_ms = _kernel_times(lambda: positive_transform(xv, d))
+    copy_ms = _kernel_times(lambda: xv.contiguous())
+    print(f"positive_transform on the step's strided view: {step_ms[0]:.4f} "
+          f"ms on the card, {step_ms[1]:.4f} ms on the host; the contiguous "
+          f"copy it no longer makes ({2 * xv.numel() * 4 / 1e6:.1f} MB "
+          f"moved): {copy_ms[0]:.4f} ms on the card")
     print("rotate vs twin: ok (bitwise without blur)")
-    # with blur: the batch read and written once, angles and sigmas read;
-    # per value two 3-tap passes of 5 operations each
-    bound = _bound(2 * x.numel() * 4 + 2 * B * 4, 10.0 * x.numel(), "f32")
-    return {"max_abs_err": max(err.values()), "times": times, "bound": bound}
+    return {"max_abs_err": max(err.values()), "times": times,
+            "bound": bounds["blur"], "bounds": bounds}
 
 
 def _check_bn(x, atol_mean, atol_var) -> float:
@@ -1040,6 +1112,7 @@ def phase_train(workdir: str, kern: dict) -> dict:
     import torch
 
     from hairci_torch.cli import mainpretrain
+    from hairci_torch.ssl import sham
 
     manifest = _write_manifest(workdir)
     epochs, steps_per_epoch = 3, 128 // TRAIN_BATCH
@@ -1051,12 +1124,27 @@ def phase_train(workdir: str, kern: dict) -> dict:
             "--train_annotation", manifest, "--img_dir", DATASET,
             "--save_path", os.path.join(workdir, "out")]
     torch.cuda.reset_peak_memory_stats()
+    # the layout of the view the step hands to positive_transform (the rotate
+    # kernel gathers at its strides)
+    seen, positive_transform = [], sham.positive_transform
+
+    def spy(x, d):
+        if not seen:
+            seen.append((tuple(x.stride()), x.is_contiguous()))
+        return positive_transform(x, d)
+
+    sham.positive_transform = spy
     _reset_counts()
     t0 = time.perf_counter()
-    trainer = mainpretrain.main(argv)
-    torch.cuda.synchronize()
+    try:
+        trainer = mainpretrain.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sham.positive_transform = positive_transform
     seconds = time.perf_counter() - t0
     launches = _counts()
+    print(f"x_pos1 on the SHAM step: strides {seen[0][0]}, contiguous "
+          f"{seen[0][1]}")
     steps = epochs * steps_per_epoch
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"mainpretrain SHAM resnet50 {SIZE}px bf16 B={TRAIN_BATCH}: "
@@ -1416,10 +1504,14 @@ def phase_train_parity() -> None:
 def kernel_times(root: str) -> int:
     """``python3 chip_smoke.py --kernel-times [DIR]``: the card's and the
     host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step,
-    of a 64 -> 64 ``Conv2d`` forward without gradient (bf16, 56 x 56), and of
+    of a 64 -> 64 ``Conv2d`` forward without gradient (bf16, 56 x 56), of
     ``topk_gallery_search`` at k=5 over a 103,945 x 768 gallery (f32 and
     bf16) for each Q of ``TOPK_SWEEP_Q`` on the route the package picks
-    (recorded where the package counts its routes), for the
+    (recorded where the package counts its routes; beside each, under
+    ``topk_twin``, the twin's median ms and the route's bound), of
+    ``rotate_shear`` on
+    the step's (64, 224, 224, 3) f32 batch without and with the blur, and of
+    ``positive_transform`` on the step's strided SimCLR view, for the
     ``hairci_torch`` package under DIR (default: this checkout), by this
     script's back-to-back method. For comparing two checkouts on one
     card: run it for each in turn, each in its own process. Prints one JSON
@@ -1429,9 +1521,12 @@ def kernel_times(root: str) -> int:
     import torch
 
     import hairci_torch
+    from hairci_torch.aug.pipelines import positive_transform
     from hairci_torch.models.resnet import Conv2d
     from hairci_torch.ops.bn_stats import bn_stats
-    from hairci_torch.ops.topk import topk_gallery_search
+    from hairci_torch.ops.rotate import rotate_shear
+    from hairci_torch.ops.topk import (topk_gallery_search,
+                                       topk_gallery_search_reference)
 
     pkg = os.path.dirname(os.path.abspath(hairci_torch.__file__))
     if os.path.dirname(pkg) != os.path.abspath(root):
@@ -1441,7 +1536,7 @@ def kernel_times(root: str) -> int:
     shapes = resnet50_bn_shapes(rows, SIZE) + [(rows, 2048, 1),
                                                (rows, 1024, 1)]
     out = {"package": pkg, "calls": BACK_TO_BACK, "bn_stats": {}, "conv": {},
-           "topk": {}}
+           "topk": {}, "topk_twin": {}, "rotate": {}}
     card = host = 0.0
     for m, c, n in shapes:
         x = (torch.randn(m, c, device="cuda", generator=gen) * 2
@@ -1466,6 +1561,21 @@ def kernel_times(root: str) -> int:
             took = [r for r, c in getattr(topk_gallery_search, "routes",
                                           {}).items() if c != before[r]]
             out["topk"][f"{Q} {name}"] = times + took
+            out["topk_twin"][f"{Q} {name}"] = [
+                _median_ms(lambda: topk_gallery_search_reference(q, g, 5)),
+                *_topk_bound(Q, name, took[0] if took else "fma")]
+    x = torch.randn(TRAIN_BATCH, SIZE, SIZE, 3, device="cuda", generator=gen)
+    theta = torch.linspace(-15, 15, TRAIN_BATCH, device="cuda") * (
+        math.pi / 180)
+    sigma = torch.rand(TRAIN_BATCH, device="cuda", generator=gen) * 0.4 + 0.1
+    xv = _step_view(gen, TRAIN_BATCH)
+    d = {"theta": theta, "sigma": sigma}
+    out["rotate"] = {
+        key: list(_kernel_times(fn)) for key, fn in (
+            ("plain", lambda: rotate_shear(x, theta, max_degrees=15.0)),
+            ("blur", lambda: rotate_shear(x, theta, max_degrees=15.0,
+                                          blur_sigma=sigma)),
+            ("positive_transform", lambda: positive_transform(xv, d)))}
     print(json.dumps(out))
     return 0
 

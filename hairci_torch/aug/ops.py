@@ -355,7 +355,7 @@ def rotate_shear(x: torch.Tensor, theta: torch.Tensor, order: int = 0,
     (nearest) is ported."""
     if order != 0:
         raise NotImplementedError("rotate_shear(order=1) is not yet ported")
-    return _rotate.rotate_shear(x.contiguous(), to_device(theta, x.device),
+    return _rotate.rotate_shear(x, to_device(theta, x.device),
                                 fill=fill, max_degrees=max_degrees)
 
 

@@ -129,9 +129,10 @@ def positive_transform(x: torch.Tensor, d: Draws) -> torch.Tensor:
     """Rotation +-15 degrees + GaussianBlur(3, sigma) of the positive view,
     on the normalised batch: the rotate kernel on a card, its twin on the
     CPU (``rotate_shear_pallas(..., blur_sigma=...)`` on the TPU). The
-    views come out of the SimCLR ops in whatever strides their last op left;
-    the kernel takes a contiguous NHWC batch."""
-    return rotate_shear(x.contiguous(), ops.to_device(d["theta"], x.device),
+    views come out of the SimCLR ops in whatever strides their last op left
+    (after ``gaussian_blur``, NCHW order); the kernel gathers at those
+    strides and writes a contiguous NHWC batch."""
+    return rotate_shear(x, ops.to_device(d["theta"], x.device),
                         max_degrees=15.0,
                         blur_sigma=ops.to_device(d["sigma"], x.device))
 

@@ -6,11 +6,15 @@ with nvcc at first use and bound with ctypes. It replaces the TPU kernel
 
 What bounds it on the card: one read and one write of the f32 NHWC batch.
 The TPU kernel shifts whole images through a ladder of rolls because gathers
-were slow there; the CUDA kernel composes the three integer shifts into one
-source coordinate per output pixel and gathers it once, then blurs a tile
-held in shared memory. The plain twin runs the three passes as three gathers
-over the batch, and the blur as separate elementwise passes, each a full
-round trip through device memory.
+were slow there. The CUDA kernel gives each block a band of full-width rows
+of one image: it writes the image's shifts into tables in shared memory
+(H + W of them, so a gathered pixel costs three table reads and three range
+tests), gathers the band once from ``x`` at ``x``'s own strides, blurs it in
+shared memory once per value, and writes it as 16-byte stores. It computes
+the shear coefficients and blur weights itself, as the TPU kernel does, so a
+call is one allocation and one launch. The plain twin runs the three passes
+as three gathers over the batch, and the blur as separate elementwise
+passes, each a full round trip through device memory.
 
 Semantics are those of ``hairci.aug.ops.rotate_shear(order=0)``: the Paeth
 decomposition, shifts rounded half up (``floor(t + 0.5)``, never
@@ -22,14 +26,14 @@ decomposition, shifts rounded half up (``floor(t + 0.5)``, never
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
-_MAX_C = 32  # channels that fit the blur kernel's shared-memory tile
 
-
+@functools.lru_cache(maxsize=None)
 def max_shifts(H: int, W: int, max_degrees: float) -> Tuple[int, int]:
     """Static shift bounds (mx, my) for |theta| <= max_degrees
     (``rotate_pallas.py:106-108``)."""
@@ -41,8 +45,8 @@ def max_shifts(H: int, W: int, max_degrees: float) -> Tuple[int, int]:
 
 def shear_coefficients(theta: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(alpha, beta) = (-tan(theta/2), sin(theta)) in f32, computed once in
-    torch for both the kernel and the twin."""
+    """(alpha, beta) = (-tan(theta/2), sin(theta)) in f32: the twin's; the
+    kernel makes the same operations itself."""
     theta = theta.float()
     return -torch.tan(theta / 2.0), torch.sin(theta)
 
@@ -99,63 +103,75 @@ def rotate_shear_reference(x: torch.Tensor, theta: torch.Tensor,
     return w1 * v + w0 * (left + right)
 
 
-def _library() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _library() -> Tuple[Callable, Callable]:
+    """(the launch function, the error-string function) of the built
+    library, with their argument types set once."""
     from hairci_torch.ops._build import load_library
 
     lib = load_library("rotate")
     fn = lib.hairci_rotate
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.hairci_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.hairci_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.hairci_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.hairci_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.hairci_cuda_error_string
+
+
+_TOO_WIDE = -1  # hairci_rotate: one band row does not fit in shared memory
 
 
 def rotate_shear(x: torch.Tensor, theta: torch.Tensor, fill: float = 0.0,
                  max_degrees: float = 45.0,
                  blur_sigma: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Rotate each image of an f32 (B, H, W, C) batch by ``theta`` (B,)
-    radians, |theta| <= max_degrees, then blur with ``blur_sigma`` (B,) if
-    given. CUDA tensors launch the kernel; CPU tensors take the twin."""
+    """Rotate each image of an f32 (B, H, W, C) batch, at any strides, by
+    ``theta`` (B,) radians, |theta| <= max_degrees, then blur with
+    ``blur_sigma`` (B,) if given; a contiguous batch out. CUDA tensors launch
+    the kernel (theta and blur_sigma f32 and contiguous there: the kernel
+    reads them as they are); CPU tensors take the twin."""
     if x.dim() != 4 or x.dtype != torch.float32:
         raise ValueError(f"rotate_shear: need an f32 (B, H, W, C) batch, got "
                          f"{x.dtype} {tuple(x.shape)}")
     B, H, W, C = x.shape
+    dev = x.device
     for name, t in (("theta", theta), ("blur_sigma", blur_sigma)):
-        if t is not None and (t.shape != (B,) or t.device != x.device):
+        if t is not None and (t.shape != (B,) or t.device != dev):
             raise ValueError(f"rotate_shear: {name} must be ({B},) on "
-                             f"{x.device}, got {tuple(t.shape)} on {t.device}")
+                             f"{dev}, got {tuple(t.shape)} on {t.device}")
     if blur_sigma is not None and (H < 2 or W < 2):
         raise ValueError("rotate_shear: the blur needs H, W >= 2")
-    if not x.is_contiguous():
-        raise ValueError("rotate_shear: input must be contiguous")
-    if x.device.type == "cpu":
+    if dev.type == "cpu":
         return rotate_shear_reference(x, theta, fill, max_degrees, blur_sigma)
-    if x.device.type != "cuda":
-        raise ValueError(f"rotate_shear: no kernel for {x.device}")
-    if blur_sigma is not None and C > _MAX_C:
-        raise ValueError(f"rotate_shear: the blur kernel takes C <= {_MAX_C}")
-    out = torch.empty_like(x)
-    if B == 0 or H == 0 or W == 0:
+    if dev.type != "cuda":
+        raise ValueError(f"rotate_shear: no kernel for {dev}")
+    for name, t in (("theta", theta), ("blur_sigma", blur_sigma)):
+        if t is not None and (t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"rotate_shear: {name} must be f32 and "
+                             f"contiguous, got {t.dtype} {t.stride()}")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
         return out
-    alpha, beta = (t.contiguous() for t in shear_coefficients(theta))
-    w0 = w1 = None
-    if blur_sigma is not None:
-        w0, w1 = (t.contiguous() for t in blur3_weights(blur_sigma))
     mx, my = max_shifts(H, W, max_degrees)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.hairci_rotate(
-            x.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-            None if w0 is None else w0.data_ptr(),
-            None if w1 is None else w1.data_ptr(), out.data_ptr(),
-            B, H, W, C, mx, my, float(fill),
-            torch.cuda.current_stream().cuda_stream)
+    index = dev.index
+    launch, error_string = _library()
+    args = (x.data_ptr(), *x.stride(), theta.data_ptr(),
+            None if blur_sigma is None else blur_sigma.data_ptr(),
+            out.data_ptr(), B, H, W, C, mx, my, fill,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if index == torch.cuda.current_device():
+        err = launch(*args)
+    else:
+        with torch.cuda.device(index):
+            err = launch(*args)
+    if err == _TOO_WIDE:
+        raise ValueError(f"rotate_shear: a row of {W} x {C} floats does not "
+                         f"fit the kernel's shared memory")
     if err != 0:
         raise RuntimeError("rotate_shear kernel launch failed: "
-                           + lib.hairci_cuda_error_string(err).decode())
+                           + error_string(err).decode())
     rotate_shear.launches += 1
     return out
 
