@@ -10,7 +10,11 @@ Phases, in order; any failure raises and exits non-zero:
   2. build   -- nvcc builds every kernel from csrc/, one process per source,
                 all started together; ptxas' registers and spills, and the
                 occupancy that follows for the conv3x3 tensor-core kernel
-                and the bn_stats kernel.
+                and the bn_stats kernel. g++ builds the C++ batch image
+                decoder (hairci_torch/native/imageio.cpp) where libjpeg and
+                libpng are installed, else its message is printed and the
+                loaders decode with PIL; every loading phase below checks
+                that its images took that route (the decoder's counter).
   3. kernels -- each kernel against its plain PyTorch twin on the card, at the
                 shapes of the serving, training and evaluation paths (the
                 top-k on both its routes, each where plan() sends it and
@@ -52,6 +56,17 @@ Phases, in order; any failure raises and exits non-zero:
                 train and the 64 images as test, all seven ks; every eval
                 forward must launch the conv3x3 kernel 3 times and the stats
                 kernel never; unit-norm features; self-retrieval at k=1.
+  7b. train-vit -- SHAM with --S2R2 on ViT-B/16 at 224, bf16, B=64, seeded
+                random weights, block remat, through mainpretrain.main for 3
+                epochs of 2 steps on phase 6's manifest: one rotate and two
+                bn_stats (the head's BNs) launches a step, no conv3x3; the
+                S2R2 term in [0, 1]. Then 10 timed warmup and mined steps
+                and the peak memory for remat False, True, "selective" and
+                "half", and one step at the config's B=256 with remat=True
+                (whether it fits, its peak memory and ms).
+  7c. knn-vit -- knn_classification.main on phase 7b's checkpoint: ViT-B/16
+                at 224, bf16, batches of 48, all seven ks; no kernel
+                launch; unit-norm 768-d features; self-retrieval at k=1.
   8. knn at full size -- ``knn_predict_multi`` on seeded clustered features,
                 103,945 x 2048 gallery, 61 classes, 4096 queries, the seven
                 ks; 512 queries against the port on the CPU; exact ties by
@@ -60,7 +75,8 @@ Phases, in order; any failure raises and exits non-zero:
                 conv3x3 kernel and with those three convs sent to F.conv2d;
                 bf16 on the card against f32 on the CPU.
  10. train parity -- one warmup step of ResNet-50 at 224, B=8, f32, on the
-                card and on the CPU from identical weights, views and draws.
+                card and on the CPU from identical weights, views and draws;
+                then the same for ViT-B/16 with the S2R2 term.
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
@@ -229,6 +245,18 @@ def phase_build() -> None:
                 print("  ptxas:", line.strip())
             if "registers" in line:
                 _print_occupancy(entry, line)
+    # the C++ batch image decoder (g++, libjpeg, libpng): the loaders take
+    # it where it builds and PIL where it does not; the phases below check
+    # that the route they took is that one
+    from hairci_torch.native import imageio
+
+    t0 = time.perf_counter()
+    if imageio.available():
+        print(f"build imageio: {time.perf_counter() - t0:.2f} s -> "
+              f"{os.path.relpath(imageio.library_path(), REPO)}")
+    else:
+        print("build imageio: not built, the loaders decode with PIL: "
+              + " | ".join(imageio.unavailable_reason().splitlines()[:6]))
 
 
 # threads per block and dynamic shared memory of the kernels this script
@@ -664,8 +692,31 @@ def phase_bn_stats() -> dict:
     values = sum(n * m * c for m, c, n, _ in shapes)
     bound = _bound(2 * values + sum(n * 8 * c for _, c, n, _ in shapes),
                    3.0 * values, "f32")
+    # the two train-mode BNs of the ViT-B/16 SHAM head, bf16, 3B rows
+    from hairci_torch.ssl.sham import _PROJ_DIMS
+
+    vit = [(rows, c) for c in _PROJ_DIMS["vit_b_16"][1:]]
+    vit_k = vit_h = vit_t = 0.0
+    for m, c in vit:
+        x = (torch.randn(m, c, device=dev, generator=gen) * 2
+             + 1).bfloat16()
+        err = max(err, _check_bn(x, 1e-4, 1e-3))
+        kern, host = _kernel_times(lambda: bn_stats(x))
+        twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
+        vit_k, vit_h, vit_t = vit_k + kern, vit_h + host, vit_t + twin
+        print(f"bn_stats ({m}, {c}) bf16, ViT SHAM head, {blocks(x)}: "
+              f"kernel {kern:.4f} ms on the card, {host:.4f} ms on the host; "
+              f"twin {twin:.4f} ms")
+    values = sum(m * c for m, c in vit)
+    vit_bound = _bound(2 * values + sum(8 * c for _, c in vit),
+                       3.0 * values, "f32")
+    print(f"bn_stats, the 2 train-mode BNs of one ViT-B/16 SHAM forward at "
+          f"{rows} rows: kernel {vit_k:.4f} ms on the card (bound "
+          f"{vit_bound[0]:.5f} by {vit_bound[1]}), {vit_h:.4f} ms on the "
+          f"host; twin {vit_t:.4f} ms")
     return {"max_abs_err": err, "step": (step_k, step_t, step_h),
-            "tool": (tool_k, tool_t, tool_h), "bound": bound}
+            "tool": (tool_k, tool_t, tool_h), "bound": bound,
+            "vit_step": (vit_k, vit_t, vit_h), "vit_bound": vit_bound}
 
 
 def _conv_inputs(gen, B, H, W, cin, cout, dtype, bias=True):
@@ -903,6 +954,25 @@ def _counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def _decodes() -> int:
+    from hairci_torch.native import imageio
+
+    return imageio.decode_batch.decodes
+
+
+def _check_decode_route(what: str, decodes: int, loaded: int) -> None:
+    """The loaders' default decoder took the C++ decoder for every image
+    where it is built, and PIL for every image where it is not."""
+    from hairci_torch.native import imageio
+
+    route = "native" if imageio.available() else "pil"
+    print(f"{what}: {loaded} images loaded, {decodes} through the C++ "
+          f"decoder (route {route})")
+    if decodes != (loaded if route == "native" else 0):
+        raise AssertionError(f"{what}: {decodes} native decodes of {loaded} "
+                             f"images on the {route} route")
+
+
 def _request(server, path, payload=None):
     url = f"http://127.0.0.1:{server.server_address[1]}{path}"
     data = None if payload is None else json.dumps(payload).encode()
@@ -1135,6 +1205,7 @@ def phase_train(workdir: str, kern: dict) -> dict:
 
     sham.positive_transform = spy
     _reset_counts()
+    decodes = _decodes()
     t0 = time.perf_counter()
     try:
         trainer = mainpretrain.main(argv)
@@ -1143,6 +1214,8 @@ def phase_train(workdir: str, kern: dict) -> dict:
         sham.positive_transform = positive_transform
     seconds = time.perf_counter() - t0
     launches = _counts()
+    _check_decode_route("mainpretrain resnet50", _decodes() - decodes,
+                        epochs * steps_per_epoch * TRAIN_BATCH)
     print(f"x_pos1 on the SHAM step: strides {seen[0][0]}, contiguous "
           f"{seen[0][1]}")
     steps = epochs * steps_per_epoch
@@ -1255,11 +1328,14 @@ def phase_knn(workdir: str, train: dict) -> dict:
             "--save_path", out_dir]
     forwards = math.ceil(128 / batch) + math.ceil(64 / batch)
     _reset_counts()
+    decodes = _decodes()
     t0 = time.perf_counter()
     clf = knn_classification.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _counts()
+    _check_decode_route("knn_classification resnet50", _decodes() - decodes,
+                        128 + 64)
     print(f"knn_classification SHAM resnet50 {SIZE}px bf16, batches of "
           f"{batch}: 128 train + 64 test images, {forwards} forwards, in "
           f"{seconds:.2f} s (model build and checkpoint load included); "
@@ -1313,6 +1389,191 @@ def phase_knn(workdir: str, train: dict) -> dict:
     del clf, x
     torch.cuda.empty_cache()
     return {"launches": launches, "idle": idle}
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: SHAM on ViT-B/16 with S2R2 through the training entry point
+# ---------------------------------------------------------------------------
+
+REMAT_MODES = (False, True, "selective", "half")
+CONFIG_BATCH = 256       # configs/pretrain_sham.yaml's batch size
+
+
+def _vit_recipe(remat):
+    """The train-vit phase's recipe (bf16, S2R2) with one mined batch."""
+    import torch
+
+    from hairci_torch.ssl.sham import SHAMRecipe
+
+    return SHAMRecipe(backbone="vit_b_16", img_size=SIZE, weight_decay=1e-4,
+                      num_batches=1, s2r2_weight=1.0, remat=remat,
+                      dtype=torch.bfloat16)
+
+
+def phase_train_vit(workdir: str, train: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from hairci_torch.cli import mainpretrain
+
+    epochs, steps_per_epoch = 3, 128 // TRAIN_BATCH
+    steps = epochs * steps_per_epoch
+    argv = ["--mode", "SHAM", "--model", "vit_b_16", "--S2R2",
+            "--size", str(SIZE), "--dtype", "bfloat16",
+            "--lr", "0.001", "--weight_decay", "1e-4", "--temp", "0.5",
+            "--ema", "0.99", "--k", "7", "--seed", "42",
+            "--batch_size", str(TRAIN_BATCH), "--epochs", str(epochs),
+            "--warm_up_epochs", "2", "--num_workers", "8",
+            "--train_annotation", train["manifest"], "--img_dir", DATASET,
+            "--save_path", os.path.join(workdir, "out_vit")]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    decodes = _decodes()
+    t0 = time.perf_counter()
+    trainer = mainpretrain.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    _check_decode_route("mainpretrain vit_b_16", _decodes() - decodes,
+                        steps * TRAIN_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"mainpretrain SHAM vit_b_16 --S2R2 {SIZE}px bf16 B={TRAIN_BATCH} "
+          f"remat=True: {steps} steps over {epochs} epochs in {seconds:.1f} "
+          f"s (model build and first-step warmup included); peak memory "
+          f"{peak:.2f} GiB; launches {launches}")
+    # one rotate a step (positive_transform), the head's two train-mode BNs
+    # a step, and no 3x3 conv anywhere in a ViT
+    want = {"rotate_shear": steps, "bn_stats": 2 * steps, "conv3x3": 0,
+            "topk_gallery_search": 0}
+    if launches != want:
+        raise AssertionError(f"ViT SHAM launches {launches} != {want}")
+    with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    for m in metrics:
+        rest = (m["contrastive_loss"] + 0.5 * m["triplet_loss"]
+                + 0.2 * m["mse_loss"])
+        print(f"epoch {m['epoch']}: loss {m['loss']:.6f} (S2R2 "
+              f"{m['loss'] - rest:.6f}) contrastive "
+              f"{m['contrastive_loss']:.6f} triplet {m['triplet_loss']:.6f} "
+              f"mse {m['mse_loss']:.6f} violations {m['margin_violations']}"
+              f" {m['images_per_sec']:.1f} img/s (host clock, loader "
+              f"included)")
+        # Smooth-AP is 1 - mean AP, in [0, 1]
+        if not -1e-4 <= m["loss"] - rest <= 1 + 1e-4:
+            raise AssertionError(f"S2R2 term out of [0, 1]: {m}")
+    if [m["epoch"] for m in metrics] != list(range(epochs)) or not all(
+            math.isfinite(m[k]) for m in metrics for k in m):
+        raise AssertionError(f"metrics.jsonl: {metrics}")
+    neg = trainer.state.neg_indices.cpu()
+    if not bool((neg != 0).any(1).all()):
+        raise AssertionError(f"neg_indices were not mined: {neg}")
+    images, _ = next(iter(trainer.train_loader))
+    images = torch.from_numpy(images).cuda()
+    save_path = trainer.save_path
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the step at B=64 in each remat mode: median ms of 10 after 3, and the
+    # peak memory of the run (model, EMA, optimizer and the step)
+    by_mode = {}
+    for mode in REMAT_MODES:
+        torch.cuda.reset_peak_memory_stats()
+        rec = _vit_recipe(mode)
+        state = rec.create_state(SEED, TRAIN_BATCH, torch.device("cuda"))
+        rec.train_step(state, images, torch.Generator().manual_seed(SEED),
+                       stage="mine", batch_id=0, k=7)
+        ms = {stage: _step_times(rec, state, images, stage)
+              for stage in ("warmup", "mined")}
+        peak_mode = torch.cuda.max_memory_allocated() / 2 ** 30
+        by_mode[str(mode)] = {"ms": ms, "peak_gib": peak_mode}
+        print(f"train_step vit_b_16 S2R2 B={TRAIN_BATCH} remat={mode!r}: "
+              f"warmup {ms['warmup']:.2f} ms, mined {ms['mined']:.2f} ms "
+              f"({TRAIN_BATCH * 1e3 / ms['mined']:.1f} img/s), host clock, "
+              f"each step synchronised; peak memory {peak_mode:.2f} GiB")
+        del rec, state
+        torch.cuda.empty_cache()
+
+    # the config's batch with block remat, on a seeded uint8 batch
+    big = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (CONFIG_BATCH, 256, 256, 3), dtype=np.uint8)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    config = {"fits": True}
+    try:
+        rec = _vit_recipe(True)
+        state = rec.create_state(SEED, CONFIG_BATCH, torch.device("cuda"))
+        config["ms"] = _step_times(rec, state, big, "warmup", runs=1,
+                                   warmup=1)
+    except torch.cuda.OutOfMemoryError as e:
+        config = {"fits": False, "error": str(e).splitlines()[0]}
+    config["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train_step vit_b_16 S2R2 B={CONFIG_BATCH} remat=True (the "
+          f"config's batch): {config}")
+    rec = state = big = None
+    torch.cuda.empty_cache()
+    return {"launches": launches, "save_path": save_path,
+            "manifest": train["manifest"], "peak_gib": peak,
+            "by_mode": by_mode, "config_batch": config}
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: kNN evaluation of the ViT SHAM checkpoint
+# ---------------------------------------------------------------------------
+
+def phase_knn_vit(workdir: str, train_vit: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from hairci_torch.cli import knn_classification
+    from hairci_torch.eval.knn import DEFAULT_KS, knn_predict
+
+    test_csv = os.path.join(workdir, "test.csv")    # phase 7's 64 images
+    out_dir = os.path.join(workdir, "knn_vit_out")
+    argv = ["--mode", "SHAM", "--model", "vit_b_16", "--size", str(SIZE),
+            "--dtype", "bfloat16", "--eval_type", "knn",
+            "--batch_size", str(CLI_BATCH), "--num_workers", "8",
+            "--checkpoint_path", train_vit["save_path"],
+            "--train_annotation", train_vit["manifest"],
+            "--test_annotation", test_csv, "--img_dir", DATASET,
+            "--save_path", out_dir]
+    _reset_counts()
+    decodes = _decodes()
+    t0 = time.perf_counter()
+    clf = knn_classification.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    _check_decode_route("knn_classification vit_b_16", _decodes() - decodes,
+                        128 + 64)
+    print(f"knn_classification SHAM vit_b_16 {SIZE}px bf16, batches of "
+          f"{CLI_BATCH}: 128 train + 64 test images in {seconds:.2f} s (model"
+          f" build and checkpoint load included); launches {launches}")
+    if any(launches.values()):
+        raise AssertionError("the ViT eval path launched a kernel: "
+                             f"{launches}")
+    with open(os.path.join(out_dir, "knn_evaluation_results.txt")) as f:
+        text = f.read()
+    accuracy = {}
+    for k in DEFAULT_KS:
+        head = f"Results for k={k}\n" + "-" * 40 + "\nAccuracy: "
+        if text.count(head) != 1:
+            raise AssertionError(f"knn_evaluation_results.txt: no block for "
+                                 f"k={k}")
+        accuracy[k] = float(text.split(head)[1].split("\n")[0])
+    print(f"knn_evaluation_results.txt (vit_b_16): accuracy by k {accuracy}")
+    tr_f, tr_l, te_f, te_l = clf.extracting_features()
+    if tr_f.shape != (128, WIDTH) or te_f.shape != (64, WIDTH):
+        raise AssertionError(f"features {tr_f.shape} {te_f.shape}")
+    for f in (tr_f, te_f):
+        norms = np.linalg.norm(f, axis=1)
+        if not (np.isfinite(f).all() and np.abs(norms - 1).max() < 1e-3):
+            raise AssertionError("features are not finite and unit-norm")
+    self_hit = float(np.mean(knn_predict(tr_f, tr_l, te_f, 1) == te_l))
+    print(f"self-retrieval at k=1 (vit_b_16): {100 * self_hit:.1f} %")
+    if self_hit != 1.0:
+        raise AssertionError("k=1 self-retrieval is not 100 %")
+    del clf
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -1466,7 +1727,8 @@ def phase_embed(conv: dict) -> None:
 # phase 10: one training step on the card against the CPU
 # ---------------------------------------------------------------------------
 
-def phase_train_parity() -> None:
+def phase_train_parity(backbone: str = "resnet50",
+                       s2r2_weight: float = 0.0) -> None:
     import numpy as np
     import torch
 
@@ -1476,8 +1738,9 @@ def phase_train_parity() -> None:
     rng = np.random.default_rng(SEED)
     images = torch.from_numpy(
         rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8))
-    rec = SHAMRecipe(backbone="resnet50", img_size=SIZE, weight_decay=1e-4,
-                     num_batches=1, dtype=torch.float32)
+    rec = SHAMRecipe(backbone=backbone, img_size=SIZE, weight_decay=1e-4,
+                     num_batches=1, dtype=torch.float32,
+                     s2r2_weight=s2r2_weight)
     draws = rec.draw(torch.Generator().manual_seed(SEED), B, 256, 256)
     views = rec.transform.apply(images, draws["views"])
     out = {}
@@ -1490,13 +1753,14 @@ def phase_train_parity() -> None:
         grads = {n: p.grad.detach().cpu()
                  for n, p in state.online.named_parameters()}
         out[dev] = (loss, grads)
-        print(f"train parity {dev}: warmup step ResNet-50 {SIZE}px B={B} f32 "
-              f"loss {loss:.7f} ({time.perf_counter() - t0:.1f} s)")
+        print(f"train parity {dev}: warmup step {backbone} {SIZE}px B={B} "
+              f"f32, S2R2 weight {s2r2_weight}: loss {loss:.7f} "
+              f"({time.perf_counter() - t0:.1f} s)")
     rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     gmax = max((out["cuda"][1][n] - g).abs().max().item()
                for n, g in out["cpu"][1].items())
-    print(f"train parity: relative loss difference {rel:.3g}, max |grad "
-          f"difference| {gmax:.3g} (clipped gradients)")
+    print(f"train parity {backbone}: relative loss difference {rel:.3g}, max "
+          f"|grad difference| {gmax:.3g} (clipped gradients)")
     if not rel <= 1e-3:
         raise AssertionError(f"card and CPU losses differ by {rel:.3g}")
 
@@ -1599,9 +1863,13 @@ def main() -> int:
         del encoder
         train = phase_train(workdir, kern)
         knn = phase_knn(workdir, train)
+        train_vit = phase_train_vit(workdir, train)
+        phase_knn_vit(workdir, train_vit)
+    vit = train_vit["launches"]
     phase_knn_full()
     phase_embed(kern["conv3x3"]["times"])
     phase_train_parity()
+    phase_train_parity("vit_b_16", s2r2_weight=1.0)
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
     # ms (the card's time, calls back to back), host_ms (the wrapper's time
@@ -1615,7 +1883,9 @@ def main() -> int:
     # weights packed by the caller as Conv2d does. No single PyTorch call
     # computes the first three (matmul + sort is two, grid_sample is no
     # 3-shear, and var_mean gives other statistics), so their library_ms is
-    # null.
+    # null. launches_vit: the same kernel's launches in the ViT SHAM training
+    # run (phase 7b); bn_stats' vit_* numbers are the ViT head's two BN
+    # inputs summed.
     topk_rows = []
     for name, route, Q in (("topk_gallery_search", "fma", 1),
                            ("topk_gallery_search_batched", "mma", 256)):
@@ -1627,6 +1897,7 @@ def main() -> int:
              "source": "hairci_torch/ops/csrc/topk.cu",
              "replaces": "hairci/ops/topk_pallas.py:43",
              "launches": launches[route],
+             "launches_vit": vit["topk_gallery_search"],
              "max_abs_err": topk["max_abs_err"][(route, "f32")],
              "ms": kern_ms, "host_ms": host_ms, "plain_ms": plain_ms,
              "bound_ms": bound[0], "bound_by": bound[1],
@@ -1636,6 +1907,7 @@ def main() -> int:
          "source": "hairci_torch/ops/csrc/rotate.cu",
          "replaces": "hairci/ops/rotate_pallas.py:70",
          "launches": train["launches"]["rotate_shear"],
+         "launches_vit": vit["rotate_shear"],
          "max_abs_err": rot["max_abs_err"],
          "ms": rot["times"]["blur"][0],
          "host_ms": rot["times"]["blur"][2],
@@ -1646,16 +1918,21 @@ def main() -> int:
          "source": "hairci_torch/ops/csrc/bn_stats.cu",
          "replaces": "tools/bn_stats_bench.py:28",
          "launches": train["launches"]["bn_stats"],
+         "launches_vit": vit["bn_stats"],
          "max_abs_err": bn["max_abs_err"],
          "ms": bn["step"][0],
          "host_ms": bn["step"][2],
          "plain_ms": bn["step"][1],
          "bound_ms": bn["bound"][0], "bound_by": bn["bound"][1],
-         "library_ms": None},
+         "library_ms": None,
+         "vit_ms": bn["vit_step"][0], "vit_host_ms": bn["vit_step"][2],
+         "vit_plain_ms": bn["vit_step"][1],
+         "vit_bound_ms": bn["vit_bound"][0]},
         {"name": "conv3x3", "route": "cuda",
          "source": "hairci_torch/ops/csrc/conv3x3.cu",
          "replaces": "tools/fused_conv_bn_bench.py:47",
          "launches": knn["launches"]["conv3x3"],
+         "launches_vit": vit["conv3x3"],
          "max_abs_err": kern["conv3x3"]["max_abs_err"],
          "ms": conv["ms"], "host_ms": conv["host_ms"],
          "plain_ms": conv["plain_ms"],

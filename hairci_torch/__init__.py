@@ -2,15 +2,19 @@
 
 Same subpackage layout and module names as ``hairci/``, which stays the JAX
 reference each module is tested against. This package imports ``torch`` and
-never ``jax``, and nothing of ``hairci``: ``data/`` is its own copy of the
-JAX-free loader.
+never ``jax``, and nothing of ``hairci``: ``data/`` and ``native/`` are its
+own copies of the JAX-free loader and the C++ batch decoder.
 
-Ported so far: hair-retrieval serving, SHAM training, and kNN evaluation.
+Ported so far: hair-retrieval serving, SHAM training (ResNets and ViT-B/16,
+with S2R2), and kNN evaluation.
   aug/        SimCLR/SHAM ops and pipelines, knn and test transforms
-  data/       CSV manifests and the threaded PIL loader
+  data/       CSV manifests, the threaded loader (C++ decoder or PIL) and
+              GrainLoader
   eval/       l2_normalize, extract_features, kNN, the report, Classifier
-  losses/     NT-Xent, triplet, margin statistics
-  models/     ViT eval forward, ResNets, BatchNorm, heads, converters
+  losses/     NT-Xent, triplet, margin statistics, S2R2 (Smooth-AP)
+  models/     ViT (eval and training forward), ResNets, BatchNorm, heads,
+              converters
+  native/     the C++ batch image decoder (g++ at first use)
   ops/        hand-written CUDA kernels (csrc/) with plain twins
   retrieval/  GalleryIndex, HairEncoder
   ssl/        recipe registry, SHAMRecipe

@@ -12,10 +12,13 @@ both loaders, L2-normalized -> kNN for k in {5, 10, 20, 27, 30, 40, 642} in
 one pass -> ``knn_evaluation_results.txt``.
 
 ``--device`` defaults to cuda and raises without a card; ``--device cpu``
-runs the kernels' plain twins. ``--checkpoint_path`` takes a checkpoint of
-the port's Trainer (the file, its run directory or its ``checkpoints/``
-folder, resolved to the newest), or a reference-trained ``.pth``/``.pt``.
-Other modes and evaluation types exit with "not yet ported".
+runs the kernels' plain twins. ``--model`` is resnet18, resnet50 or
+vit_b_16. ``--checkpoint_path`` takes a checkpoint of the port's Trainer (the
+file, its run directory or its ``checkpoints/`` folder, resolved to the
+newest), or a reference-trained ResNet SHAM ``.pth``/``.pt``. A reference
+``.pth`` of SHAM on a ViT exits: the JAX package has no converter for one
+either (its ``convert_sham2`` reads ResNets only). Other modes and
+evaluation types exit with "not yet ported".
 """
 
 from __future__ import annotations
@@ -76,8 +79,6 @@ def recipe_for_eval(args):
     if args.mode != "SHAM":
         raise SystemExit(f"mode {args.mode!r} is not yet ported "
                          "(hairci_torch evaluates SHAM only)")
-    if args.model == "vit_b_16":
-        raise SystemExit("SHAM on a ViT backbone is not yet ported")
     return build_recipe(
         "SHAM", backbone=args.model, img_size=args.size,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
@@ -88,6 +89,12 @@ def load_state(recipe, args, device: torch.device):
     state = recipe.create_state(args.seed, min(args.batch_size, 8), device)
     path = args.checkpoint_path
     if path and path.endswith((".pth", ".pt")):
+        if args.model.startswith("vit"):
+            raise SystemExit(
+                "a reference .pth of SHAM on a ViT cannot be read: the "
+                "reference layout is known for ResNet backbones only (as in "
+                "hairci's convert_sham2); evaluate a checkpoint of this "
+                "package's Trainer instead")
         sd = sham2_state_dict(load_torch_state_dict(path))
         state.online.load_state_dict(sd)
         state.ema.load_state_dict(sd)

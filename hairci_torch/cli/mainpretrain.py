@@ -4,9 +4,10 @@ the same flags and YAML, SHAM only so far.
     python -m hairci_torch.cli.mainpretrain --mode SHAM --model resnet50 \\
         --size 224 --train_annotation data_train.csv --img_dir images/
 
-``--device`` defaults to cuda and raises without a card; ``--device cpu``
-runs the kernels' plain twins. Other modes and ``--S2R2`` exit with "not yet
-ported".
+``--model`` is resnet18, resnet50 or vit_b_16 (ViT-B/16 with block remat);
+``--S2R2`` adds the Smooth-AP term at weight 1. ``--device`` defaults to
+cuda and raises without a card; ``--device cpu`` runs the kernels' plain
+twins. Other modes exit with "not yet ported".
 """
 
 from __future__ import annotations
@@ -35,14 +36,13 @@ def build_recipe_from_args(args, num_batches: int):
     if args.mode != "SHAM":
         raise SystemExit(f"mode {args.mode!r} is not yet ported "
                          "(hairci_torch trains SHAM only)")
-    if args.S2R2:
-        raise SystemExit("--S2R2 is not yet ported")
     return build_recipe(
         "SHAM", backbone=args.model, img_size=args.size,
         temperature=args.temp, learning_rate=args.lr,
         weight_decay=args.weight_decay, betas=(args.beta1, args.beta2),
         ema_momentum=args.ema, warm_up_epochs=args.warm_up_epochs,
         ablation=args.ablation, num_batches=num_batches,
+        s2r2_weight=1.0 if args.S2R2 else 0.0,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
 
 

@@ -1,0 +1,57 @@
+"""Ranking losses (port of ``hairci/losses/ranking.py``).
+
+``s2r2_loss``: differentiable Smooth-AP, a sigmoid-relaxed rank matrix over
+all pairs of every query, O(N^3) work. The reference materialises the whole
+(N, N, N) difference tensor; here it is taken over chunks of ``CHUNK``
+queries, each under ``torch.utils.checkpoint``, so the backward recomputes a
+chunk instead of keeping it and live memory stays O(CHUNK * N^2). At SHAM's
+B=256 (N = 768) the whole tensor would be 1.8 GB in f32, plus what autograd
+keeps of it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+CHUNK = 64   # queries a chunk: 151 MB of f32 differences at N = 768
+
+
+def _ap_of_queries(sim_q: torch.Tensor, pos_q: torch.Tensor,
+                   all_q: torch.Tensor, tau: float) -> torch.Tensor:
+    """AP of a chunk of queries from their rows of ``sim`` and the masks,
+    in the JAX package's order of operations."""
+    diff = sim_q[:, None, :] - sim_q[:, :, None]
+    sig = torch.sigmoid(diff / tau)
+    rank_pos = 1.0 + torch.sum(sig * pos_q[:, None, :], dim=2)
+    rank_all = 1.0 + torch.sum(sig * all_q[:, None, :], dim=2)
+    ap_ratio = rank_pos / (rank_all + 1e-8)
+    ap_sum = torch.sum(ap_ratio * pos_q, dim=1)
+    num_pos = torch.sum(pos_q, dim=1)
+    return ap_sum / (num_pos + 1e-8)
+
+
+def s2r2_loss(embeddings: torch.Tensor,
+              targets: Optional[torch.Tensor] = None, tau: float = 0.01,
+              k_views: int = 3) -> torch.Tensor:
+    """Smooth-AP over concatenated views [v1 of all; v2 of all; ...]:
+    loss = 1 - mean_q AP(q), AP from the sigmoid rank approximation.
+    Computed in f32 whatever the input's dtype (``tau`` multiplies the
+    similarities' rounding error by 1 / tau inside the sigmoid)."""
+    e = embeddings.float()
+    z = e / torch.clamp(torch.linalg.vector_norm(e, dim=-1, keepdim=True),
+                        min=1e-12)
+    n = z.shape[0]
+    if targets is None:
+        targets = torch.arange(n // k_views,
+                               device=z.device).repeat(k_views)
+    sim = z @ z.T
+    eye = torch.eye(n, dtype=torch.float32, device=z.device)
+    pos_mask = (targets[:, None] == targets[None, :]).float() - eye
+    all_mask = 1.0 - eye
+    ap = [checkpoint(_ap_of_queries, sim[s:s + CHUNK], pos_mask[s:s + CHUNK],
+                     all_mask[s:s + CHUNK], tau, use_reentrant=False)
+          for s in range(0, n, CHUNK)]
+    return 1.0 - torch.mean(torch.cat(ap))

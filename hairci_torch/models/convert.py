@@ -12,8 +12,9 @@ timm/reference ViT state dict up to the port's key set the way
 ``ResNet`` / ``SHAMModule`` (params and batch stats) with the key mapping of
 ``export_resnet`` and ``export_sham2`` (torchvision layout; the SHAM head as
 ``projection_head.layers.{0,1,3,4}``), with the backbone under ``backbone.``
-rather than the reference's ``nn.Sequential`` indices; ``sham2_state_dict``
-renames a reference-trained SHAM ``.pth`` in that ``nn.Sequential`` layout.
+rather than the reference's ``nn.Sequential`` indices; a ViT SHAM backbone
+maps as ``vit_state_dict_from_jax`` does. ``sham2_state_dict`` renames a
+reference-trained ResNet SHAM ``.pth`` in that ``nn.Sequential`` layout.
 """
 
 from __future__ import annotations
@@ -104,11 +105,18 @@ def sham_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                              model: str = "resnet18"
                              ) -> Dict[str, torch.Tensor]:
     """JAX ``SHAMModule`` (params, batch_stats) -> the port's ``SHAMModule``
-    state dict (load with ``strict=True``)."""
-    stages, block = resnet._STAGES[model]
-    sd = {f"backbone.{k}": v for k, v in resnet_state_dict_from_jax(
-        params["backbone"], batch_stats["backbone"], stages,
-        block is resnet.BottleneckBlock).items()}
+    state dict (load with ``strict=True``). ``model`` is the backbone's name:
+    a ResNet, or ``vit_b_16`` / ``vit_base_patch16``."""
+    if model.startswith("vit"):
+        bp = params["backbone"]
+        depth = sum(1 for k in bp if k.startswith("block"))
+        backbone = vit_state_dict_from_jax(bp, depth)
+    else:
+        stages, block = resnet._STAGES[model]
+        backbone = resnet_state_dict_from_jax(
+            params["backbone"], batch_stats["backbone"], stages,
+            block is resnet.BottleneckBlock)
+    sd = {f"backbone.{k}": v for k, v in backbone.items()}
     hp, hs = params["projection_head"], batch_stats["projection_head"]
     for i, (lin, bn) in enumerate((("0", "1"), ("3", "4"))):
         sd[f"projection_head.layers.{lin}.weight"] = _t(

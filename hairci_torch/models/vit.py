@@ -1,4 +1,5 @@
-"""Vision Transformer, eval forward (port of ``hairci/models/vit.py``).
+"""Vision Transformer (port of ``hairci/models/vit.py``): the eval forward
+of the encoders and the training forward of SHAM.
 
 State-dict keys follow timm's layout (``cls_token``, ``pos_embed``,
 ``patch_embed.proj``, ``blocks.N.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,
@@ -6,8 +7,11 @@ mlp.fc2}``, ``norm``, ``fc_norm``), the layout ``export_vit`` writes, so JAX
 params load with ``strict=True`` through ``models.convert``.
 
 Numerics follow the Flax modules:
-  * Dense and conv layers compute in the module dtype. Their weights are
-    stored in it, which is the cast Flax applies to f32 params on every call.
+  * Dense and conv layers compute in the module's ``dtype``; their weights
+    are cast to it on every call, as Flax casts its f32 params. The weights
+    are stored in ``param_dtype``: f32 for training (the optimizer updates
+    f32 weights, as optax does), or ``dtype`` itself for serving, where the
+    per-call cast is then a no-op.
   * LayerNorm is pinned to f32 (params and output), eps 1e-6, with the
     variance taken as E[x^2] - E[x]^2 like Flax.
   * The residual stream is in the module dtype.
@@ -15,20 +19,33 @@ Numerics follow the Flax modules:
   * Attention is two matmuls and a softmax: scores come out in bf16 when the
     module runs in bf16 and are scaled in bf16; softmax runs in f32 and is
     cast back.
+  * The sin-cos position table is fixed (Flax's ``stop_gradient``): it
+    takes no gradient.
 Input images are NHWC, as in the JAX package.
 
-Not ported yet: token masking (``ids_keep``, ``token_mask``), ``remat``,
-LayerScale, the cross blocks and the multi-resolution pos-embed resize.
+``remat`` recomputes activations in the backward pass instead of keeping
+them, with the JAX package's modes, on ``torch.utils.checkpoint``:
+``False`` keeps everything; ``True`` / ``"full"`` checkpoints every block;
+``"selective"`` only the scores -> softmax -> .v core of each attention
+(the (B, H, N, N) tensors JAX's policy drops); ``"half"`` the even blocks
+0, 2, 4, ... and runs the odd ones plain. Only the blocks are checkpointed,
+and only with grad mode on; the parameters and the results do not change.
+
+Not ported yet: token masking (``ids_keep``, ``token_mask``), LayerScale,
+the cross blocks and the multi-resolution pos-embed resize.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+REMAT_MODES = (False, True, "full", "selective", "half")
 
 
 # ---------------------------------------------------------------------------
@@ -73,9 +90,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
                   else "none")
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """Flax Dense(dtype=...): input cast to the layer's compute dtype."""
-    return layer(x.to(layer.weight.dtype))
+def _dense(layer: nn.Linear, x: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """Flax Dense(dtype=...): input, kernel and bias cast to ``dtype``."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype),
+                    layer.bias.to(dtype))
 
 
 class LayerNorm(nn.Module):
@@ -98,45 +117,63 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _dense(self.fc2, gelu(_dense(self.fc1, x)))
+        return _dense(self.fc2, gelu(_dense(self.fc1, x, self.dtype)),
+                      self.dtype)
+
+
+def _attention_core(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd)) v: scores in bf16 for bf16 inputs, else
+    f32; the softmax in f32, cast back to v's dtype."""
+    if q.dtype != torch.bfloat16:
+        q, k = q.float(), k.float()
+    attn = torch.matmul(q, k.transpose(-2, -1)) * q.shape[-1]**-0.5
+    attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
+    return torch.matmul(attn, v)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with f32 softmax; scores in bf16 when the
     module computes in bf16 (``hairci/models/vit.py:Attention``)."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 remat_core: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.dtype = dtype
+        self.remat_core = remat_core
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, D = x.shape
         head_dim = D // self.num_heads
-        qkv = _dense(self.qkv, x).reshape(B, N, 3, self.num_heads, head_dim)
+        qkv = _dense(self.qkv, x, self.dtype).reshape(
+            B, N, 3, self.num_heads, head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # each (B, H, N, hd)
-        if q.dtype != torch.bfloat16:
-            q, k = q.float(), k.float()
-        attn = torch.matmul(q, k.transpose(-2, -1)) * head_dim**-0.5
-        attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
-        out = torch.matmul(attn, v)
-        return _dense(self.proj, out.transpose(1, 2).reshape(B, N, D))
+        if self.remat_core and torch.is_grad_enabled():
+            out = checkpoint(_attention_core, q, k, v, use_reentrant=False)
+        else:
+            out = _attention_core(q, k, v)
+        return _dense(self.proj, out.transpose(1, 2).reshape(B, N, D),
+                      self.dtype)
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 remat_core: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, dtype, remat_core)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, 4 * dim)
+        self.mlp = Mlp(dim, 4 * dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -144,13 +181,16 @@ class Block(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    def __init__(self, patch_size: int = 16, embed_dim: int = 768):
+    def __init__(self, patch_size: int, embed_dim: int, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> (B, H*W/p^2, D), rows of patches in raster order."""
-        x = self.proj(x.permute(0, 3, 1, 2).to(self.proj.weight.dtype))
+        x = self.proj._conv_forward(
+            x.permute(0, 3, 1, 2).to(self.dtype),
+            self.proj.weight.to(self.dtype), self.proj.bias.to(self.dtype))
         return x.flatten(2).transpose(1, 2)
 
 
@@ -167,23 +207,29 @@ class VisionTransformer(nn.Module):
     Parameters are drawn from ``generator`` (lecun-normal dense and conv
     kernels as in Flax, zero biases, N(0, 0.02) cls/mask tokens, fixed
     sin-cos position table) in f32 on the CPU, then the dense and conv
-    weights are cast to ``dtype``; so one seed gives the same weights in
-    every dtype and on every device.
+    weights are cast to ``param_dtype`` (default ``dtype``); so one seed
+    gives the same weights in every dtype and on every device.
     """
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, img_size: int = 224,
                  dtype: torch.dtype = torch.float32,
                  global_pool: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: Optional[torch.dtype] = None,
+                 remat: Any = False):
         super().__init__()
-        self.embed_dim = embed_dim
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                             f"{remat!r}")
+        self.embed_dim = self.num_features = embed_dim
         self.depth = depth
         self.dtype = dtype
         self.global_pool = global_pool
+        self.remat = remat
         grid = img_size // patch_size
         self.num_patches = grid * grid
-        self.patch_embed = PatchEmbed(patch_size, embed_dim)
+        self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
         # the mask token is unused by the eval forward; it is kept so the
         # key set matches the JAX tree (export_vit writes it)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -193,14 +239,15 @@ class VisionTransformer(nn.Module):
             requires_grad=False)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads) for _ in range(depth))
+            Block(embed_dim, num_heads, dtype, remat == "selective")
+            for _ in range(depth))
         self.norm = LayerNorm(embed_dim)
         if global_pool:
             self.fc_norm = LayerNorm(embed_dim)
         self._init_weights(generator)
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
-                m.to(dtype)
+                m.to(param_dtype or dtype)
 
     @torch.no_grad()
     def _init_weights(self, generator: Optional[torch.Generator]) -> None:
@@ -217,6 +264,11 @@ class VisionTransformer(nn.Module):
             elif name.endswith(".bias"):
                 nn.init.zeros_(p)
 
+    def _remat_block(self, i: int) -> bool:
+        if self.remat == "half":
+            return i % 2 == 0
+        return self.remat in (True, "full")
+
     def forward(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
         B = x.shape[0]
         tokens = self.patch_embed(x.to(self.dtype))
@@ -228,8 +280,11 @@ class VisionTransformer(nn.Module):
         tokens = tokens + pos_embed[:, 1:].to(tokens.dtype)
         cls = (self.cls_token + pos_embed[:, :1]).to(tokens.dtype)
         tokens = torch.cat([cls.expand(B, -1, -1), tokens], dim=1)
-        for blk in self.blocks:
-            tokens = blk(tokens)
+        for i, blk in enumerate(self.blocks):
+            if self._remat_block(i) and torch.is_grad_enabled():
+                tokens = checkpoint(blk, tokens, use_reentrant=False)
+            else:
+                tokens = blk(tokens)
         normed = self.norm(tokens)
         if not pool:
             return normed

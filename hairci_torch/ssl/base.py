@@ -12,9 +12,15 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from hairci_torch.models.vit import VisionTransformer
+
 
 def backbone_features(backbone: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Pooled features of a backbone (the ResNets return them directly)."""
+    """Pooled features of a backbone: a ViT's with ``pool=True`` (the
+    final-normed cls token, or fc_norm of the mean patch token); the ResNets
+    return them directly."""
+    if isinstance(backbone, VisionTransformer):
+        return backbone(x, pool=True)
     return backbone(x)
 
 

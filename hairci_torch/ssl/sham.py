@@ -12,7 +12,14 @@ One step, as in the JAX package:
   5. ONE online forward over [negatives; positives; anchors] (3B rows, one
      BN pass and one running-stat update, the stats from the bn_stats
      kernel), and one eval-mode EMA forward of the masked positives;
-  6. loss = NT-Xent + 0.5 triplet + 0.2 MSE, clip at global norm 1.0, AdamW.
+  6. loss = NT-Xent + 0.5 triplet + 0.2 MSE (+ ``s2r2_weight`` Smooth-AP
+     over [anchors; positives; negatives] with ``--S2R2``), clip at global
+     norm 1.0, AdamW.
+
+The backbone is a ResNet or ViT-B/16 (``vit_b_16`` / ``vit_base_patch16``).
+The ViT trains f32 weights computed in ``dtype`` and checkpoints its blocks
+by ``remat`` (default ``True``, as in the JAX package: without it the step's
+three gradient-carrying passes keep every block's attention matrices).
 
 The port updates the state in place. ``train_step`` draws every random
 parameter of the step from one CPU generator (``draw``) and hands them to
@@ -43,10 +50,16 @@ from hairci_torch.losses.contrastive import (
     nt_xent_loss,
     triplet_margin_loss,
 )
+from hairci_torch.losses.ranking import s2r2_loss
 from hairci_torch.models.heads import MLPHead
 from hairci_torch.models.resnet import build_resnet
+from hairci_torch.models.vit import build_vit
 from hairci_torch.ssl.base import backbone_features, register_recipe
-from hairci_torch.train.optim import clip_grad_global_norm_, make_optimizer
+from hairci_torch.train.optim import (
+    clip_grad_global_norm_,
+    fill_missing_grads_,
+    make_optimizer,
+)
 from hairci_torch.train.state import TrainState, ema_update
 
 _PROJ_DIMS = {
@@ -62,14 +75,18 @@ class SHAMModule(nn.Module):
     of the same module)."""
 
     def __init__(self, backbone_name: str = "resnet18",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, img_size: int = 224,
+                 remat: Any = True):
         super().__init__()
         if backbone_name not in _PROJ_DIMS:
             raise ValueError(f"unknown backbone {backbone_name!r}")
         if backbone_name.startswith("vit"):
-            raise NotImplementedError("SHAM on a ViT backbone is not yet "
-                                      "ported")
-        self.backbone = build_resnet(backbone_name, dtype=dtype)
+            # f32 weights cast per call, as Flax trains them
+            self.backbone = build_vit(
+                "vit_base_patch16", img_size=img_size, dtype=dtype,
+                param_dtype=torch.float32, remat=remat)
+        else:
+            self.backbone = build_resnet(backbone_name, dtype=dtype)
         _, hidden, out = _PROJ_DIMS[backbone_name]
         self.projection_head = MLPHead(
             self.backbone.num_features,
@@ -120,10 +137,8 @@ class SHAMRecipe:
         transform: Optional[MultiViewTransform] = None,
         mask_ratio_range: Tuple[float, float] = (0.1, 0.5),
         s2r2_weight: float = 0.0,
+        remat: Any = True,
     ):
-        if s2r2_weight > 0:
-            raise NotImplementedError("--S2R2 (the Smooth-AP term of SHAM) "
-                                      "is not yet ported")
         if ablation == "fixed_margin_0_7":
             margin_stage1 = margin_stage2 = 0.7
         elif ablation == "fixed_margin_0_5":
@@ -144,6 +159,8 @@ class SHAMRecipe:
         self.num_batches = num_batches
         self.img_size = img_size
         self.mask_ratio_range = tuple(mask_ratio_range)
+        self.s2r2_weight = s2r2_weight
+        self.remat = remat
         self.transform = transform or simclr_transform(img_size)
 
     # ------------------------------------------------------------------
@@ -152,7 +169,8 @@ class SHAMRecipe:
         """Seeded random weights; the EMA teacher starts as a copy."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            online = SHAMModule(self.backbone, self.dtype)
+            online = SHAMModule(self.backbone, self.dtype, self.img_size,
+                                self.remat)
         online = online.to(device).to(memory_format=torch.channels_last)
         ema = copy.deepcopy(online).requires_grad_(False).eval()
         return TrainState(
@@ -230,7 +248,13 @@ class SHAMRecipe:
             total = contrastive + self.triplet_w * triplet
         else:
             total = contrastive + self.triplet_w * triplet + self.mse_w * mse
+        if self.s2r2_weight > 0:
+            total = total + self.s2r2_weight * s2r2_loss(
+                torch.cat([anchor_b, pos_b, neg_b]), tau=0.01, k_views=3)
         total.backward()
+        # parameters without a gradient (the ViT's fixed position table and
+        # unused mask token) still decay, as under optax
+        fill_missing_grads_(state.optimizer)
         clip_grad_global_norm_(online.parameters(), 1.0)
         state.optimizer.step()
         state.step += 1

@@ -1,6 +1,11 @@
 """Optimizer (port of ``hairci/train/optim.py``): Adam(W) with weight decay
 on every parameter except biases and 1-D parameters (BN scales and biases),
-after clipping by global norm in the optax form."""
+after clipping by global norm in the optax form.
+
+As optax does, the optimizer holds every parameter, also those that take
+no gradient (a ViT's fixed position table, its unused mask token): the step
+gives them zero gradients (``fill_missing_grads_``), so they still decay and
+their Adam moments still shrink."""
 
 from __future__ import annotations
 
@@ -20,13 +25,23 @@ def make_optimizer(module: nn.Module, learning_rate: float,
                    betas=(0.9, 0.999)) -> torch.optim.Optimizer:
     """``optax.adamw(mask=decay_mask)`` or ``optax.adam``: decoupled decay,
     eps 1e-8 outside the square root."""
-    named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
+    named = list(module.named_parameters())
     groups = [{"params": [p for n, p in named if decays(n, p)],
                "weight_decay": weight_decay or 0.0},
               {"params": [p for n, p in named if not decays(n, p)],
                "weight_decay": 0.0}]
     return torch.optim.AdamW(groups, lr=learning_rate, betas=tuple(betas),
                              eps=1e-8)
+
+
+@torch.no_grad()
+def fill_missing_grads_(optimizer: torch.optim.Optimizer) -> None:
+    """A zero gradient for every parameter of ``optimizer`` that has none:
+    ``torch.optim.AdamW`` skips such a parameter, optax updates it."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 @torch.no_grad()

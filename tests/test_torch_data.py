@@ -1,7 +1,8 @@
 """The port's own copy of the manifest reader and the host-side loader
 (``hairci_torch/data``) against the originals in ``hairci/data`` on the
-committed images: the same manifest, the same uint8 batches bit for bit, the
-same epoch order."""
+committed images: the same manifest, the same uint8 batches bit for bit
+under the default decoder of both (the C++ decoder in ``raw_resize`` and
+``center_crop``) and under PIL, the same epoch order."""
 
 from pathlib import Path
 
@@ -12,6 +13,7 @@ from hairci.data.loader import DataLoader as JaxDataLoader
 from hairci.data.loader import decode_image as jax_decode_image
 from hairci.data.manifest import load_manifest as jax_load_manifest
 from hairci_torch.data import DataLoader, decode_image, load_manifest
+from hairci_torch.native import imageio
 
 REPO = Path(__file__).resolve().parents[1]
 IMG_DIR = REPO / "HairPretraining" / "data" / "hair_regions"
@@ -49,15 +51,14 @@ def _batches(loader):
     ("raw_resize", 64, {}),
     ("center_crop", 48, {"pad_last": True}),
     ("raw_resize", 40, {"drop_last": True}),
+    ("raw_resize", 64, {"decoder": "pil"}),
 ])
 def test_batches_bitwise_equal(manifests, mode, size, kw):
     ours, ref = manifests
     common = dict(batch_size=4, size=size, mode=mode, shuffle=False,
                   num_workers=2, **kw)
-    # the original's "auto" may take its C++ decoder, which is only
-    # bit-close in raw_resize; the port has the PIL path
     a = _batches(DataLoader(ours, **common))
-    b = _batches(JaxDataLoader(ref, decoder="pil", **common))
+    b = _batches(JaxDataLoader(ref, **common))
     assert len(a) == len(b) == (2 if kw.get("drop_last") else 3)
     for (im, lb), (rim, rlb) in zip(a, b):
         assert im.dtype == np.uint8 and im.shape == rim.shape
@@ -75,8 +76,7 @@ def test_shuffled_epoch_order_matches(manifests, epoch):
     ours, ref = manifests
     common = dict(batch_size=4, size=32, mode="raw_resize", shuffle=True,
                   seed=123, num_workers=1)
-    a, b = DataLoader(ours, **common), JaxDataLoader(ref, decoder="pil",
-                                                     **common)
+    a, b = DataLoader(ours, **common), JaxDataLoader(ref, **common)
     a.set_epoch(epoch)
     b.set_epoch(epoch)
     np.testing.assert_array_equal(a._order(), b._order())
@@ -99,13 +99,24 @@ def test_decode_image_matches(manifests, mode):
     assert decode_image(str(IMG_DIR / "missing.png"), mode, 56) is None
 
 
-def test_native_decoder_is_not_ported(manifests):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DataLoader(manifests[0], 4, decoder="native")
+@pytest.mark.parametrize("mode", ["raw_resize", "center_crop"])
+def test_native_decoder_takes_the_batches(manifests, mode):
+    ours = manifests[0]
+    common = dict(size=40, mode=mode, shuffle=False, num_workers=2)
+    before = imageio.decode_batch.decodes
+    native = _batches(DataLoader(ours, 4, decoder="native", **common))
+    assert imageio.decode_batch.decodes - before == 11
+    auto = _batches(DataLoader(ours, 4, **common))
+    assert imageio.decode_batch.decodes - before == 22
+    pil = _batches(DataLoader(ours, 4, decoder="pil", **common))
+    assert imageio.decode_batch.decodes - before == 22
+    for (im, lb), (aim, alb), (pim, plb) in zip(native, auto, pil):
+        np.testing.assert_array_equal(im, aim)
+        np.testing.assert_array_equal(lb, plb)
+        d = np.abs(im.astype(int) - pim.astype(int))
+        assert d.max() <= (2 if mode == "raw_resize" else 0), d.max()
     with pytest.raises(ValueError, match="unknown decoder"):
-        DataLoader(manifests[0], 4, decoder="turbo")
-    assert len(_batches(DataLoader(manifests[0], 4, size=32, decoder="pil",
-                                   shuffle=False))) == 3
+        DataLoader(ours, 4, decoder="turbo")
 
 
 def test_failed_decodes_are_skipped(manifests, tmp_path):

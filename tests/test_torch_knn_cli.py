@@ -3,7 +3,7 @@
 package: a ResNet-18 SHAM model at 40 px on committed images, the same
 weights in both (one reference-layout ``.pth``), the same features,
 predictions and result file; the parser's Namespace; checkpoints of the
-port's Trainer; and what is not ported yet."""
+port's Trainer, ResNet and ViT; and what is not ported yet."""
 
 import types
 from pathlib import Path
@@ -70,7 +70,7 @@ def slice_(tmp_path_factory):
     jstate = types.SimpleNamespace(params=jparams, batch_stats=jstats)
     loaders = [JaxDataLoader(jax_load_manifest(csv, str(IMG_DIR)), BATCH,
                              size=SIZE, mode="center_crop", shuffle=False,
-                             num_workers=1, decoder="pil")
+                             num_workers=1)
                for csv in (train_csv, test_csv)]
     jclf = JaxClassifier(lambda im: jrec.extract_features(jstate, im),
                          *loaders, str(root / "jax"), batch_size=BATCH)
@@ -184,10 +184,12 @@ def test_cli_refuses_what_is_not_ported(slice_, tmp_path):
         return out
 
     for argv in (swap("--mode", "simclr"), swap("--eval_type", "linear_prob"),
-                 swap("--eval_type", "visualization"),
-                 swap("--model", "vit_b_16")):
+                 swap("--eval_type", "visualization")):
         with pytest.raises(SystemExit, match="not yet ported"):
             cli.main(argv)
+    # a reference .pth of SHAM on a ViT: no converter in either package
+    with pytest.raises(SystemExit, match="ResNet backbones only"):
+        cli.main(swap("--model", "vit_b_16"))
     no_type = list(base)
     del no_type[no_type.index("--eval_type"):no_type.index("--eval_type") + 2]
     with pytest.raises(SystemExit, match="--eval_type is required"):
@@ -195,3 +197,38 @@ def test_cli_refuses_what_is_not_ported(slice_, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(swap("--device", "cuda"))
+
+
+def test_vit_trainer_checkpoint_evaluates(tmp_path, monkeypatch):
+    """``--model vit_b_16`` on a checkpoint of the port's own ViT SHAM run
+    (ViT-B/16 cut to patch 8, width 64, depth 2 at 32 px): the backbone's
+    pooled cls token, unit-norm, and every test image finds itself."""
+    import hairci_torch.models.vit as port_vit
+    import hairci_torch.ssl.sham as port_sham
+
+    monkeypatch.setitem(port_vit.VIT_CONFIGS, "vit_base_patch16",
+                        (8, 64, 2, 2))
+    monkeypatch.setitem(port_sham._PROJ_DIMS, "vit_b_16", (64, 64, 32))
+    train_csv, test_csv = _manifests(tmp_path, n_train=8, n_test=3)
+    common = ["--mode", "SHAM", "--model", "vit_b_16", "--size", "32",
+              "--device", "cpu", "--dtype", "float32", "--batch_size", "4",
+              "--num_workers", "1", "--train_annotation", train_csv,
+              "--img_dir", str(IMG_DIR)]
+    trainer = mainpretrain.main(common + [
+        "--S2R2", "--epochs", "1", "--save_path", str(tmp_path / "out")])
+    clf = cli.main(common + [
+        "--eval_type", "knn", "--checkpoint_path", trainer.save_path,
+        "--test_annotation", test_csv, "--save_path", str(tmp_path / "knn")])
+    tr_f, tr_l, te_f, te_l = clf.extracting_features()
+    assert tr_f.shape == (8, 64) and te_f.shape == (3, 64)
+    np.testing.assert_allclose(np.linalg.norm(tr_f, axis=1), 1, atol=1e-5)
+    text = (tmp_path / "knn" / "knn_evaluation_results.txt").read_text()
+    assert all(f"Results for k={k}\n" in text for k in DEFAULT_KS)
+    # the test images are train images 2-4: each is its own neighbour
+    np.testing.assert_array_equal(
+        knn_predict_multi(tr_f, tr_l, te_f, [1], 3, device="cpu")[1], te_l)
+    eval_images = next(iter(clf.test_loader))[0]
+    direct = trainer.recipe.extract_features(
+        trainer.state, torch.from_numpy(eval_images))
+    direct = direct / direct.norm(dim=1, keepdim=True)
+    np.testing.assert_allclose(te_f, direct.numpy(), atol=1e-6)

@@ -179,5 +179,3 @@ def test_ablations_compose_the_loss(jax_steps, monkeypatch):
         if check is not None:
             torch.testing.assert_close(m["loss"], check(m))
     assert SHAMRecipe(ablation="fixed_margin_0_5").margin_stage1 == 0.5
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        SHAMRecipe(s2r2_weight=1.0)

@@ -167,5 +167,38 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
             str(img_dir), "--save_path", str(tmp_path)]
     with pytest.raises(SystemExit, match="not yet ported"):
         mainpretrain.main(base + ["--mode", "simclr"])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        mainpretrain.main(base + ["--mode", "SHAM", "--S2R2"])
+
+
+def test_cli_trains_vit_sham_with_s2r2(tmp_path, monkeypatch):
+    """``--model vit_b_16 --S2R2`` through the CLI, with ViT-B/16 cut to
+    patch 8, width 64, depth 2 at 32 px: the recipe carries the Smooth-AP
+    weight and block remat, and the run trains through all three stages."""
+    import hairci_torch.models.vit as port_vit
+    import hairci_torch.ssl.sham as port_sham
+
+    monkeypatch.setitem(port_vit.VIT_CONFIGS, "vit_base_patch16",
+                        (8, 64, 2, 2))
+    monkeypatch.setitem(port_sham._PROJ_DIMS, "vit_b_16", (64, 64, 32))
+    csv, img_dir = _manifest(tmp_path)
+    argv = ["--mode", "SHAM", "--model", "vit_b_16", "--S2R2", "--size",
+            "32", "--device", "cpu", "--dtype", "float32", "--batch_size",
+            "4", "--epochs", "3", "--warm_up_epochs", "2", "--k", "3",
+            "--num_workers", "1", "--train_annotation", str(csv),
+            "--img_dir", str(img_dir), "--save_path", str(tmp_path / "out")]
+    args = parse_pretrain_args(argv)
+    recipe = mainpretrain.build_recipe_from_args(args, num_batches=2)
+    assert recipe.s2r2_weight == 1.0 and recipe.remat is True
+    trainer = mainpretrain.main(argv)
+    backbone = trainer.state.online.backbone
+    assert backbone.remat is True and backbone.blocks[0].mlp.fc1.weight.dtype \
+        == torch.float32
+    metrics = [json.loads(s) for s in Path(
+        trainer.save_path, "metrics.jsonl").read_text().splitlines()]
+    assert [m["epoch"] for m in metrics] == [0, 1, 2]
+    for m in metrics:
+        assert np.isfinite(m["loss"])
+        # the Smooth-AP term (in [0, 1]) is in the total
+        rest = m["contrastive_loss"] + 0.5 * m["triplet_loss"] \
+            + 0.2 * m["mse_loss"]
+        assert 0 < m["loss"] - rest <= 1 + 1e-5
+    assert trainer.state.step == 6
