@@ -32,7 +32,10 @@ Phases, in order; any failure raises and exits non-zero:
                 weights. Rotate is held bitwise without the blur and within
                 2e-6 with it at the step's batch, at seven odd shapes
                 (contiguous and in NCHW order) and on the step's own
-                strided SimCLR view, and timed on both routes.
+                strided SimCLR view, and timed on both routes. conv3x3 bf16
+                also at (64 / 48 / 47, 224, 224, 64), the CIFAR-stem
+                ResNet-18's layer1, and bn_stats at the 20 BN inputs of one
+                SupCon forward (layer1 at 128 x 224 x 224 rows).
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
@@ -67,16 +70,42 @@ Phases, in order; any failure raises and exits non-zero:
   7c. knn-vit -- knn_classification.main on phase 7b's checkpoint: ViT-B/16
                 at 224, bf16, batches of 48, all seven ks; no kernel
                 launch; unit-norm 768-d features; self-retrieval at k=1.
+  7d. train-simclr -- SimCLR (configs/pretrain_simclr.yaml: ResNet-50,
+                temperature 0.7) through mainpretrain.main, bf16, seeded
+                random weights, B=48 for 2 epochs on phase 6's manifest, so
+                each epoch ends in a padded batch (48 + 48 + 32): 55 bn_stats
+                launches a step, no rotate, no conv3x3; the "Loss =" log line
+                and a checkpoint without an EMA. Then 10 timed steps after 3
+                at B=64 with the peak memory, and one step at the config's
+                B=256 where the B=64 peak, scaled by rows, is below 75 GiB.
+  7e. train-supcon -- SupCon (configs/pretrain_simclr_supcon.yaml: the
+                CIFAR-stem ResNet-18, temperature 0.07) the same way: 20
+                bn_stats launches a step; timed at B=64 and B=128; B=256
+                only where twice the B=128 peak is below 75 GiB, else the
+                extrapolated peak and "does not fit".
+  7f. eval-baselines -- knn_classification.main on 7d's and 7e's
+                checkpoints with each --eval_type (knn, linear_prob,
+                visualization, inter_intra_distance), batches of 48: 3
+                conv3x3 launches an eval forward for ResNet-50, 4 for the
+                CIFAR-stem ResNet-18, no bn_stats; the result file of each;
+                unit-norm features; the probe's accuracy and the variance
+                ratio printed.
   8. knn at full size -- ``knn_predict_multi`` on seeded clustered features,
                 103,945 x 2048 gallery, 61 classes, 4096 queries, the seven
                 ks; 512 queries against the port on the CPU; exact ties by
                 index; top-k + tie repair against a stable sort of the scores.
+  8b. probe at full size -- ``linear_probe_fit_predict`` on the same
+                features (500 iterations, TF32 off): seconds, the final
+                objective, objective evaluations an iteration; on 8192 rows
+                the card against the CPU (predictions >= 99.5 % equal, the
+                objective within rtol 1e-4).
   9. embed   -- ResNet-50 eval forward at 224, bf16, batch 64: with the
                 conv3x3 kernel and with those three convs sent to F.conv2d;
                 bf16 on the card against f32 on the CPU.
  10. train parity -- one warmup step of ResNet-50 at 224, B=8, f32, on the
                 card and on the CPU from identical weights, views and draws;
-                then the same for ViT-B/16 with the S2R2 term.
+                then the same for ViT-B/16 with the S2R2 term, one SimCLR
+                step (ResNet-50) and one SupCon step (CIFAR-stem ResNet-18).
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
@@ -481,6 +510,24 @@ def resnet50_bn_shapes(rows: int, size: int) -> list:
     return [(m, c, n) for (m, c), n in shapes.items()]
 
 
+def resnet18_cifar_bn_shapes(rows: int, size: int) -> list:
+    """(M, C, count) of every train-mode BN of a CIFAR-stem ResNet-18
+    forward (SupCon's encoder: a 3x3/1 stem and no max pool, so layer1 runs
+    at the full ``size``) over ``rows`` images."""
+    out, hw = [(rows * size * size, 64, 1)], size          # stem
+    for i in range(4):
+        f = 64 * 2 ** i
+        for j in range(2):
+            if i > 0 and j == 0:
+                hw //= 2                # BasicBlock strides on conv1
+                out.append((rows * hw * hw, f, 1))         # downsample
+            out.append((rows * hw * hw, f, 2))             # bn1, bn2
+    shapes = {}
+    for m, c, n in out:
+        shapes[(m, c)] = shapes.get((m, c), 0) + n
+    return [(m, c, n) for (m, c), n in shapes.items()]
+
+
 # the shapes the rotate kernel's band tiling cares about, both routes, as in
 # tests/test_torch_rotate.py: (B, H, W, C, max_degrees, fill)
 ROTATE_ODD = ((5, 33, 31, 3, 15.0, 0.0), (7, 32, 32, 1, 15.0, 0.0),
@@ -714,9 +761,39 @@ def phase_bn_stats() -> dict:
           f"{rows} rows: kernel {vit_k:.4f} ms on the card (bound "
           f"{vit_bound[0]:.5f} by {vit_bound[1]}), {vit_h:.4f} ms on the "
           f"host; twin {vit_t:.4f} ms")
+    # the 20 train-mode BNs of one SupCon forward: the CIFAR-stem ResNet-18
+    # over both views (2B rows), layer1 at 224 x 224
+    sc_rows = 2 * TRAIN_BATCH
+    sc = resnet18_cifar_bn_shapes(sc_rows, SIZE)
+    sc_k = sc_h = sc_t = 0.0
+    for m, c, n in sc:
+        x = (torch.randn(m, c, device=dev, generator=gen) * 2
+             + 1).bfloat16()
+        err = max(err, _check_bn(x, 1e-4, 1e-3))
+        kern, host = _kernel_times(lambda: bn_stats(x))
+        twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
+        sc_k, sc_h, sc_t = sc_k + n * kern, sc_h + n * host, sc_t + n * twin
+        floor = m * c * 2 / HBM_BYTES_PER_S * 1e3
+        print(f"bn_stats ({m}, {c}) bf16 x{n} per SupCon forward, "
+              f"{blocks(x)}: kernel {kern:.4f} ms on the card (bound "
+              f"{floor:.4f}, {100 * floor / kern:.1f} %), {host:.4f} ms on the"
+              f" host; twin {twin:.4f} ms")
+        del x
+    count = sum(n for *_, n in sc)
+    values = sum(n * m * c for m, c, n in sc)
+    sc_bound = _bound(2 * values + sum(n * 8 * c for _, c, n in sc),
+                      3.0 * values, "f32")
+    print(f"bn_stats, the {count} train-mode BNs of one SupCon forward "
+          f"(CIFAR-stem ResNet-18 at {SIZE}, {sc_rows} rows, "
+          f"{values * 2 / 1e9:.2f} GB): kernel {sc_k:.3f} ms on the card "
+          f"({100 * sc_bound[0] / sc_k:.1f} % of the bound {sc_bound[0]:.3f} "
+          f"ms by {sc_bound[1]}), {sc_h:.3f} ms on the host; twin {sc_t:.3f} "
+          f"ms; vs twin and run to run: ok")
+    torch.cuda.empty_cache()
     return {"max_abs_err": err, "step": (step_k, step_t, step_h),
             "tool": (tool_k, tool_t, tool_h), "bound": bound,
-            "vit_step": (vit_k, vit_t, vit_h), "vit_bound": vit_bound}
+            "vit_step": (vit_k, vit_t, vit_h), "vit_bound": vit_bound,
+            "supcon_step": (sc_k, sc_t, sc_h), "supcon_bound": sc_bound}
 
 
 def _conv_inputs(gen, B, H, W, cin, cout, dtype, bias=True):
@@ -913,13 +990,47 @@ def phase_conv3x3() -> dict:
                   f"on the card ({100 * bound / lib_ms:.1f} % of the bound), "
                   f"{lib_host:.4f} ms on the host")
             del x, w, b, wl, bl, packed
+    # the CIFAR-stem ResNet-18's layer1 (SupCon's eval forward): 224 x 224,
+    # 16x the pixels of ResNet-50's layer1; 47 leaves a ragged last wave
+    times224 = {}
+    for B in (KNN_BATCH, CLI_BATCH, CLI_BATCH - 1):
+        x, w, b = _conv_inputs(gen, B, SIZE, SIZE, 64, 64, torch.bfloat16)
+        for stats in (False, True):
+            least_equal = min(least_equal, check(x, w, b, stats)["equal"])
+        one, two = conv3x3(x, w, b, stats=True), conv3x3(x, w, b, stats=True)
+        if not all(torch.equal(p, q) for p, q in zip(one, two)):
+            raise AssertionError(f"conv3x3 differs from run to run at "
+                                 f"({B}, {SIZE}, {SIZE}, 64)")
+        del one, two
+        nbytes = 2 * x.numel() * 2 + 9 * 64 * 64 * 4 + 64 * 4
+        bound, by = _bound(nbytes, 2.0 * B * SIZE * SIZE * 9 * 64 * 64,
+                           "bf16")
+        wl, bl = w.bfloat16(), b.bfloat16()
+        packed = pack_weights(w, torch.bfloat16)
+        with torch.no_grad():
+            ms, host = _kernel_times(lambda: conv3x3(x, w, b, packed=packed))
+            lib_ms, lib_host = _kernel_times(
+                lambda: F.conv2d(x, wl, bl, padding=1))
+            plain = _median_ms(lambda: conv3x3_reference(x, w, b), runs=10,
+                               warmup=2)
+        times224[B] = {"ms": ms, "host_ms": host, "plain_ms": plain,
+                       "library_ms": lib_ms, "library_host_ms": lib_host,
+                       "bound_ms": bound, "bound_by": by}
+        print(f"conv3x3 ({B}, {SIZE}, {SIZE}, 64) -> 64 bf16, the mma "
+              f"kernel: {ms:.4f} ms on the card ({100 * bound / ms:.1f} % of "
+              f"the bound {bound:.4f} ms, by {by}), {host:.4f} ms on the "
+              f"host; twin {plain:.4f} ms; F.conv2d {lib_ms:.4f} ms on the "
+              f"card ({100 * bound / lib_ms:.1f} % of the bound), "
+              f"{lib_host:.4f} ms on the host")
+        del x, w, b, wl, bl, packed
     print("conv3x3 kernel by shape: " + "; ".join(
         f"{k} {v}" for k, v in took.items()))
     print(f"conv3x3 vs twin: ok; max |err| f32 {worst[torch.float32]:.3g} "
           f"bf16 {worst[torch.bfloat16]:.3g}; bf16 outputs bitwise equal at "
-          f"56x56x64: >= {100 * least_equal:.4f} %")
+          f"56x56x64 and 224x224x64: >= {100 * least_equal:.4f} %")
     torch.cuda.empty_cache()
-    return {"max_abs_err": worst[torch.bfloat16], "times": times}
+    return {"max_abs_err": worst[torch.bfloat16], "times": times,
+            "times224": times224}
 
 
 def phase_kernels() -> dict:
@@ -1396,7 +1507,8 @@ def phase_knn(workdir: str, train: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 REMAT_MODES = (False, True, "selective", "half")
-CONFIG_BATCH = 256       # configs/pretrain_sham.yaml's batch size
+CONFIG_BATCH = 256       # the batch size of configs/pretrain_{sham,simclr,
+                         # simclr_supcon}.yaml
 
 
 def _vit_recipe(remat):
@@ -1577,10 +1689,235 @@ def phase_knn_vit(workdir: str, train_vit: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 7d and 7e: the SimCLR and SupCon baselines through the training CLI
+# ---------------------------------------------------------------------------
+
+# mode -> the configuration's model and temperature (configs/
+# pretrain_simclr.yaml, configs/pretrain_simclr_supcon.yaml, passed as flags),
+# the train-mode BN inputs of one step, and the batches timed
+BASELINES = {
+    "simclr": {"model": "resnet50", "temp": "0.7", "bn": 55,
+               "timed": (TRAIN_BATCH,)},
+    "simclr_supcon": {"model": "resnet18", "temp": "0.07", "bn": 20,
+                      "timed": (TRAIN_BATCH, 2 * TRAIN_BATCH)},
+}
+BASELINE_EPOCHS = 2
+FIT_GIB = 75.0           # a batch runs only where its extrapolated peak fits
+
+
+def _baseline_step_times(recipe, state, images, labels, runs=10, warmup=3):
+    """Median host ms per ``train_step`` of SimCLR or SupCon (each ends in a
+    synchronize)."""
+    import torch
+
+    times = []
+    for i in range(warmup + runs):
+        gen = torch.Generator().manual_seed(1000 + i)
+        t0 = time.perf_counter()
+        recipe.train_step(state, images, gen, labels=labels)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _timed_batch(recipe, B: int, runs: int = 10, warmup: int = 3) -> dict:
+    """A fresh seeded state at batch ``B`` on a seeded uint8 batch (256 px
+    for 224, as the loader resizes for the crop) and labels of 64 classes:
+    median step ms and the peak memory of state and steps."""
+    import numpy as np
+    import torch
+
+    raw = max(SIZE, int(SIZE * 256 / 224))
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(rng.integers(0, 256, (B, raw, raw, 3),
+                                           dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 64, B)).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = recipe.create_state(SEED, B, torch.device("cuda"))
+    ms = _baseline_step_times(recipe, state, images, labels, runs, warmup)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, images, labels
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak_gib": peak}
+
+
+def phase_train_baseline(workdir: str, train: dict, mode: str) -> dict:
+    import torch
+
+    from hairci_torch.cli import mainpretrain
+
+    cfg = BASELINES[mode]
+    batch = CLI_BATCH
+    steps_per_epoch = math.ceil(128 / batch)         # 48 + 48 + 32 padded
+    steps = BASELINE_EPOCHS * steps_per_epoch
+    argv = ["--mode", mode, "--model", cfg["model"], "--temp", cfg["temp"],
+            "--lr", "0.001", "--size", str(SIZE), "--dtype", "bfloat16",
+            "--seed", "42", "--batch_size", str(batch), "--epochs",
+            str(BASELINE_EPOCHS), "--num_workers", "8",
+            "--train_annotation", train["manifest"], "--img_dir", DATASET,
+            "--save_path", os.path.join(workdir, f"out_{mode}")]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    decodes = _decodes()
+    t0 = time.perf_counter()
+    trainer = mainpretrain.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    # the padding repeats decoded rows: every image is decoded once an epoch
+    _check_decode_route(f"mainpretrain {mode}", _decodes() - decodes,
+                        BASELINE_EPOCHS * 128)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"mainpretrain {mode} {cfg['model']} {SIZE}px bf16 B={batch}: "
+          f"{steps} steps over {BASELINE_EPOCHS} epochs in {seconds:.1f} s "
+          f"(model build and first-step warmup included); peak memory "
+          f"{peak:.2f} GiB; launches {launches}")
+    loader = trainer.train_loader
+    if not (len(loader) == steps_per_epoch and loader.pad_last
+            and not loader.drop_last and trainer.state.step == steps):
+        raise AssertionError(f"{mode}: {len(loader)} batches an epoch, "
+                             f"pad_last {loader.pad_last}, "
+                             f"{trainer.state.step} steps")
+    want = {"rotate_shear": 0, "bn_stats": cfg["bn"] * steps, "conv3x3": 0,
+            "topk_gallery_search": 0}
+    if launches != want:
+        raise AssertionError(f"{mode} launches {launches} != {want}")
+    with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    with open(os.path.join(trainer.save_path, "training_log.txt")) as f:
+        log = f.read()
+    for m in metrics:
+        print(f"{mode} epoch {m['epoch']}: loss {m['loss']:.6f} "
+              f"{m['images_per_sec']:.1f} img/s (host clock, loader "
+              f"included)")
+    if [m["epoch"] for m in metrics] != list(range(BASELINE_EPOCHS)) or \
+            not all(math.isfinite(m["loss"]) for m in metrics) or \
+            log.count(": Loss = ") != BASELINE_EPOCHS:
+        raise AssertionError(f"{mode}: metrics {metrics}, log {log!r}")
+    ckpt = torch.load(os.path.join(trainer.save_path, "model_ckpt_latest"),
+                      map_location="cpu", weights_only=True)
+    if set(ckpt) != {"online", "optimizer", "step", "epoch"}:
+        raise AssertionError(f"{mode} checkpoint keys {sorted(ckpt)}")
+    recipe, save_path = trainer.recipe, trainer.save_path
+    del trainer, ckpt
+    torch.cuda.empty_cache()
+
+    timed = {}
+    for B in cfg["timed"]:
+        timed[B] = _timed_batch(recipe, B)
+        print(f"train_step {mode} {cfg['model']} bf16 B={B}: median "
+              f"{timed[B]['ms']:.2f} ms/step ({B * 1e3 / timed[B]['ms']:.1f} "
+              f"img/s), host clock, each step synchronised; peak memory "
+              f"{timed[B]['peak_gib']:.2f} GiB")
+    # the config's batch, where the largest timed batch's peak, scaled by
+    # rows, says that it fits
+    last = cfg["timed"][-1]
+    extrapolated = timed[last]["peak_gib"] * CONFIG_BATCH / last
+    if extrapolated < FIT_GIB:
+        config = {"fits": True, **_timed_batch(recipe, CONFIG_BATCH, runs=1,
+                                               warmup=1)}
+    else:
+        config = {"fits": False, "extrapolated_peak_gib": extrapolated}
+    print(f"train_step {mode} {cfg['model']} bf16 B={CONFIG_BATCH} (the "
+          f"config's batch; {timed[last]['peak_gib']:.2f} GiB at B={last} "
+          f"scales to {extrapolated:.1f} GiB): "
+          + (f"{config['ms']:.2f} ms, peak memory {config['peak_gib']:.2f} "
+             f"GiB" if config["fits"] else "does not fit"))
+    return {"launches": launches, "save_path": save_path, "timed": timed,
+            "config_batch": config, "peak_gib": peak}
+
+
+# ---------------------------------------------------------------------------
+# phase 7f: the baselines' checkpoints through every evaluation
+# ---------------------------------------------------------------------------
+
+EVAL_FILES = {"knn": "knn_evaluation_results.txt",
+              "linear_prob": "linear_probe_results.txt",
+              "visualization": "umap_test.npz",
+              "inter_intra_distance": "variance_analysis_both.txt"}
+
+
+def phase_eval_baselines(workdir: str, train: dict, runs: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from hairci_torch.cli import knn_classification
+
+    test_csv = os.path.join(workdir, "test.csv")    # phase 7's 64 images
+    forwards = math.ceil(128 / CLI_BATCH) + math.ceil(64 / CLI_BATCH)
+    out = {}
+    for mode, convs in (("simclr", 3), ("simclr_supcon", 4)):
+        model = BASELINES[mode]["model"]
+        total = {"conv3x3": 0, "bn_stats": 0}
+        for eval_type, name in EVAL_FILES.items():
+            out_dir = os.path.join(workdir, f"eval_{mode}", eval_type)
+            argv = ["--mode", mode, "--model", model, "--size", str(SIZE),
+                    "--dtype", "bfloat16", "--eval_type", eval_type,
+                    "--batch_size", str(CLI_BATCH), "--num_workers", "8",
+                    "--checkpoint_path", runs[mode]["save_path"],
+                    "--train_annotation", train["manifest"],
+                    "--test_annotation", test_csv, "--img_dir", DATASET,
+                    "--save_path", out_dir]
+            _reset_counts()
+            t0 = time.perf_counter()
+            clf = knn_classification.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = _counts()
+            want = {"rotate_shear": 0, "bn_stats": 0,
+                    "conv3x3": convs * forwards, "topk_gallery_search": 0}
+            if launches != want:
+                raise AssertionError(f"{mode} {eval_type} launches "
+                                     f"{launches} != {want}")
+            for k in total:
+                total[k] += launches[k]
+            path = os.path.join(out_dir, name)
+            if not os.path.isfile(path):
+                raise AssertionError(f"{mode} {eval_type}: no {name}")
+            tr_f, _, te_f, _ = clf.extracting_features()
+            for f in (tr_f, te_f):
+                if not (np.isfinite(f).all() and np.abs(
+                        np.linalg.norm(f, axis=1) - 1).max() < 1e-3):
+                    raise AssertionError(f"{mode}: features are not finite "
+                                         "and unit-norm")
+            note = ""
+            if eval_type == "linear_prob":
+                with open(path) as f:
+                    acc = float(f.read().split("Accuracy: ")[1].split()[0])
+                if not 0.0 <= acc <= 1.0:
+                    raise AssertionError(f"probe accuracy {acc}")
+                note = f"; probe accuracy {acc:.4f}"
+            elif eval_type == "inter_intra_distance":
+                with open(path) as f:
+                    ratio = float(f.read().split("variance_ratio: ")[1]
+                                  .split()[0])
+                if not ratio > 0:
+                    raise AssertionError(f"variance ratio {ratio}")
+                note = f"; variance ratio {ratio:.6f}"
+            elif eval_type == "visualization":
+                coords = np.load(path)["coords"]
+                if coords.shape != (64, 2) or not np.isfinite(coords).all():
+                    raise AssertionError(f"2-D coordinates {coords.shape}")
+            print(f"knn_classification {mode} {model} --eval_type "
+                  f"{eval_type}: {name} written in {seconds:.2f} s; "
+                  f"{tr_f.shape[1]}-d unit-norm features; launches "
+                  f"{launches}{note}")
+            del clf
+        out[mode] = total
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: kNN at the gallery size of the README's benchmark
 # ---------------------------------------------------------------------------
 
-def phase_knn_full() -> None:
+def phase_knn_full() -> tuple:
+    """Returns the seeded features (gallery, its labels, the queries, their
+    labels) as numpy arrays, for the probe at full size."""
     import numpy as np
     import torch
 
@@ -1660,7 +1997,84 @@ def phase_knn_full() -> None:
     print(f"kNN at full size: card == CPU on 512 queries at every k; top-k "
           f"with repair == stable sort on {Q} x {N} scores; ties by index "
           f"and class; accuracy at k=5 {acc:.4f}")
+    q_labels = l_np[rows.cpu().numpy()]
+    del gallery, labels, queries, noise
     torch.cuda.empty_cache()
+    return g_np, l_np, q_np, q_labels
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the linear probe at the gallery size of the README's benchmark
+# ---------------------------------------------------------------------------
+
+PROBE_CPU_ROWS = (8192, 1024)   # train and test rows of the CPU comparison
+
+
+def phase_probe_full(data: tuple) -> dict:
+    import numpy as np
+    import torch
+
+    from hairci_torch.eval.knn import full_f32_matmul
+    from hairci_torch.eval.linear_probe import (
+        fit_lbfgs,
+        linear_probe_fit_predict,
+    )
+
+    X, y, Xq, yq = data
+    C = int(y.max()) + 1
+    t0 = time.perf_counter()
+    preds = linear_probe_fit_predict(X, y, Xq, C, max_iter=500)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    acc = float(np.mean(preds == yq))
+    dev = torch.device("cuda")
+    Xd = torch.from_numpy(X).to(dev)
+    yd = torch.from_numpy(y.astype(np.int64)).to(dev)
+    t0 = time.perf_counter()
+    W, b, info = fit_lbfgs(Xd, yd, C, 500)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    with full_f32_matmul():
+        again = (torch.from_numpy(Xq).to(dev) @ W + b).argmax(1).cpu().numpy()
+    print(f"linear_probe_fit_predict {X.shape[0]} x {X.shape[1]} f32, {C} "
+          f"classes, {Xq.shape[0]} test rows, max_iter 500, TF32 off: "
+          f"{seconds:.3f} s (host clock, the copies to the card included); "
+          f"accuracy {acc:.4f}. The fit alone: {fit_s:.3f} s, objective "
+          f"{info['objective']:.7f} after {info['iterations']} iterations "
+          f"and {info['evaluations']} objective evaluations "
+          f"({info['evaluations'] / max(info['iterations'], 1):.2f} an "
+          f"iteration); its predictions equal the entry point's on "
+          f"{100 * np.mean(again == preds):.2f} % of rows")
+    if not (np.isfinite(info["objective"]) and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"probe: {info}, accuracy {acc}")
+    del Xd, yd, W, b
+    torch.cuda.empty_cache()
+
+    # the card against the port on the CPU, on the first rows
+    n, nq = PROBE_CPU_ROWS
+    fits = {}
+    for name in ("cuda", "cpu"):
+        d = torch.device(name)
+        t0 = time.perf_counter()
+        W, b, inf = fit_lbfgs(torch.from_numpy(X[:n]).to(d),
+                              torch.from_numpy(y[:n].astype(np.int64)).to(d),
+                              C, 500)
+        with full_f32_matmul():
+            p = (torch.from_numpy(Xq[:nq]).to(d) @ W + b).argmax(1).cpu()
+        fits[name] = (p.numpy(), inf, time.perf_counter() - t0)
+    agree = float(np.mean(fits["cuda"][0] == fits["cpu"][0]))
+    o_card, o_cpu = fits["cuda"][1]["objective"], fits["cpu"][1]["objective"]
+    rel = abs(o_card - o_cpu) / abs(o_cpu)
+    print(f"linear probe on {n} x {X.shape[1]}, {nq} test rows: card "
+          f"{fits['cuda'][2]:.2f} s ({fits['cuda'][1]['iterations']} "
+          f"iterations), CPU {fits['cpu'][2]:.2f} s "
+          f"({fits['cpu'][1]['iterations']}); predictions agree on "
+          f"{100 * agree:.2f} %; objective {o_card:.7f} against "
+          f"{o_cpu:.7f} (relative {rel:.3g})")
+    if not (agree >= 0.995 and rel <= 1e-4):
+        raise AssertionError("the probe on the card and on the CPU disagree")
+    return {"seconds": seconds, "fit_seconds": fit_s, "info": info,
+            "accuracy": acc, "agree": agree, "objective_rel": rel}
 
 
 # ---------------------------------------------------------------------------
@@ -1765,6 +2179,43 @@ def phase_train_parity(backbone: str = "resnet50",
         raise AssertionError(f"card and CPU losses differ by {rel:.3g}")
 
 
+def phase_train_parity_baseline(mode: str) -> None:
+    """One f32 step of SimCLR (ResNet-50) or SupCon (CIFAR-stem ResNet-18)
+    at 224, B=8, on the card and on the CPU from identical weights, views
+    and labels."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.ssl import build_recipe
+
+    B = 8
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8))
+    labels = torch.tensor([0, 1, 0, 2, 1, 0, 3, 2])
+    model = BASELINES[mode]["model"]
+    rec = build_recipe(mode, backbone=model, img_size=SIZE,
+                       weight_decay=1e-4, dtype=torch.float32)
+    draws = rec.draw(torch.Generator().manual_seed(SEED), B, 256, 256)
+    views = rec.transform.apply(images, draws["views"])
+    loss = {}
+    for dev in ("cuda", "cpu"):
+        state = rec.create_state(SEED, B, torch.device(dev))
+        t0 = time.perf_counter()
+        args = [v.to(dev) for v in views]
+        if mode == "simclr_supcon":
+            args.append(labels.to(dev))
+        loss[dev] = float(rec.step_on_views(state, *args)["loss"])
+        print(f"train parity {dev}: {mode} step {model} {SIZE}px B={B} f32: "
+              f"loss {loss[dev]:.7f} ({time.perf_counter() - t0:.1f} s)")
+        del state
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    print(f"train parity {mode}: relative loss difference {rel:.3g}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"card and CPU losses differ by {rel:.3g}")
+    torch.cuda.empty_cache()
+
+
 def kernel_times(root: str) -> int:
     """``python3 chip_smoke.py --kernel-times [DIR]``: the card's and the
     host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step,
@@ -1865,13 +2316,19 @@ def main() -> int:
         knn = phase_knn(workdir, train)
         train_vit = phase_train_vit(workdir, train)
         phase_knn_vit(workdir, train_vit)
+        runs = {mode: phase_train_baseline(workdir, train, mode)
+                for mode in BASELINES}
+        evals = phase_eval_baselines(workdir, train, runs)
     vit = train_vit["launches"]
-    phase_knn_full()
+    phase_probe_full(phase_knn_full())
     phase_embed(kern["conv3x3"]["times"])
     phase_train_parity()
     phase_train_parity("vit_b_16", s2r2_weight=1.0)
+    for mode in BASELINES:
+        phase_train_parity_baseline(mode)
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
+    conv224 = kern["conv3x3"]["times224"][CLI_BATCH]
     # ms (the card's time, calls back to back), host_ms (the wrapper's time
     # on the host), plain_ms, bound_ms and library_ms of a kernel are at one
     # shape: the top-k at Q=1 (its fma route) and, as
@@ -1885,7 +2342,12 @@ def main() -> int:
     # 3-shear, and var_mean gives other statistics), so their library_ms is
     # null. launches_vit: the same kernel's launches in the ViT SHAM training
     # run (phase 7b); bn_stats' vit_* numbers are the ViT head's two BN
-    # inputs summed.
+    # inputs summed. launches_simclr / launches_supcon: bn_stats' launches in
+    # the SimCLR and SupCon training runs (phases 7d, 7e), conv3x3's in the
+    # four evaluations of each one's checkpoint (phase 7f); bn_stats'
+    # supcon_* numbers are the 20 BN inputs of one SupCon forward summed,
+    # conv3x3's *_224 numbers the CIFAR-stem ResNet-18's layer1 conv at the
+    # kNN CLI's batch, (48, 224, 224, 64) bf16.
     topk_rows = []
     for name, route, Q in (("topk_gallery_search", "fma", 1),
                            ("topk_gallery_search_batched", "mma", 256)):
@@ -1927,7 +2389,13 @@ def main() -> int:
          "library_ms": None,
          "vit_ms": bn["vit_step"][0], "vit_host_ms": bn["vit_step"][2],
          "vit_plain_ms": bn["vit_step"][1],
-         "vit_bound_ms": bn["vit_bound"][0]},
+         "vit_bound_ms": bn["vit_bound"][0],
+         "launches_simclr": runs["simclr"]["launches"]["bn_stats"],
+         "launches_supcon": runs["simclr_supcon"]["launches"]["bn_stats"],
+         "supcon_ms": bn["supcon_step"][0],
+         "supcon_host_ms": bn["supcon_step"][2],
+         "supcon_plain_ms": bn["supcon_step"][1],
+         "supcon_bound_ms": bn["supcon_bound"][0]},
         {"name": "conv3x3", "route": "cuda",
          "source": "hairci_torch/ops/csrc/conv3x3.cu",
          "replaces": "tools/fused_conv_bn_bench.py:47",
@@ -1937,7 +2405,13 @@ def main() -> int:
          "ms": conv["ms"], "host_ms": conv["host_ms"],
          "plain_ms": conv["plain_ms"],
          "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
-         "library_ms": conv["library_ms"]}]}))
+         "library_ms": conv["library_ms"],
+         "launches_simclr": evals["simclr"]["conv3x3"],
+         "launches_supcon": evals["simclr_supcon"]["conv3x3"],
+         "ms_224": conv224["ms"], "host_ms_224": conv224["host_ms"],
+         "plain_ms_224": conv224["plain_ms"],
+         "bound_ms_224": conv224["bound_ms"],
+         "library_ms_224": conv224["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

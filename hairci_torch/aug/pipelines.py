@@ -1,7 +1,6 @@
-"""Augmentation pipelines (port of the SHAM half of
-``hairci/aug/pipelines.py``): the SimCLR views, the positive transform and
-the hair masking of every SHAM step, and the deterministic kNN and test
-transforms.
+"""Augmentation pipelines (port of part of ``hairci/aug/pipelines.py``):
+the SimCLR views, SupCon's two views, the positive transform and the hair
+masking of every SHAM step, and the deterministic kNN and test transforms.
 
 Each pipeline has a draw half (a dict of small CPU tensors from one CPU
 ``torch.Generator``) and an apply half that takes those draws, so a test can
@@ -11,7 +10,7 @@ inject the JAX package's draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -95,7 +94,7 @@ class ViewConfig:
 class MultiViewTransform:
     """N views from N ViewConfigs."""
 
-    views: Tuple[ViewConfig, ...]
+    views: Tuple[Any, ...]   # ViewConfig or SupConView
 
     def draw(self, gen: torch.Generator, B: int, H: int,
              W: int) -> List[Draws]:
@@ -112,6 +111,38 @@ class MultiViewTransform:
 def simclr_transform(size: int = 224) -> MultiViewTransform:
     """lightly SimCLRTransform(input_size=size), two views."""
     v = ViewConfig(size=size)
+    return MultiViewTransform((v, v))
+
+
+@dataclasses.dataclass(frozen=True)
+class SupConView:
+    """One view of ``TwoCropTransform(get_train_transform)``: hflip (p=0.5),
+    ColorJitter(0.4, 0.4, 0.4, 0.1) applied with p=0.8, a bilinear resize to
+    ``size`` (no crop: the reference comments its crop out), normalize."""
+
+    size: int
+    mean: Tuple[float, ...]
+    std: Tuple[float, ...]
+
+    def draw(self, gen: torch.Generator, B: int, H: int, W: int) -> Draws:
+        d: Draws = {"flip": ops.draw_flags(gen, B, 0.5)}
+        d.update({f"cj_{k}": v for k, v in ops.draw_color_jitter(
+            gen, B, 0.4, 0.4, 0.4, 0.1, p=0.8).items()})
+        return d
+
+    def apply(self, x: torch.Tensor, d: Draws) -> torch.Tensor:
+        x = ops.hflip(ops.to_float(x), d["flip"])
+        x = ops.color_jitter(x, {k[3:]: v for k, v in d.items()
+                                 if k.startswith("cj_")})
+        x = ops.resize(x, (self.size, self.size))
+        return ops.normalize(x, self.mean, self.std)
+
+
+def supcon_train_transform(size: int = 224, mean=ops.IMAGENET_MEAN,
+                           std=ops.IMAGENET_STD) -> MultiViewTransform:
+    """SupCon's two views (``hairci/aug/pipelines.py:supcon_train_transform``);
+    the recipe passes the CIFAR-100 mean and std."""
+    v = SupConView(size, tuple(mean), tuple(std))
     return MultiViewTransform((v, v))
 
 

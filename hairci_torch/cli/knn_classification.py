@@ -1,5 +1,5 @@
 """Evaluation entry point of the port (``hairci/cli/knn_classification.py``):
-the same flags and YAML, SHAM mode and ``--eval_type knn`` so far.
+the same flags and YAML.
 
     python -m hairci_torch.cli.knn_classification --mode SHAM \\
         --model resnet50 --eval_type knn --checkpoint_path output_dir/run \\
@@ -8,17 +8,26 @@ the same flags and YAML, SHAM mode and ``--eval_type knn`` so far.
 
 Manifests -> ``DataLoader(mode="center_crop")`` -> the recipe's
 ``extract_features`` (``knn_transform`` + the backbone in eval mode) over
-both loaders, L2-normalized -> kNN for k in {5, 10, 20, 27, 30, 40, 642} in
-one pass -> ``knn_evaluation_results.txt``.
+both loaders, L2-normalized -> one of four evaluations:
 
-``--device`` defaults to cuda and raises without a card; ``--device cpu``
-runs the kernels' plain twins. ``--model`` is resnet18, resnet50 or
-vit_b_16. ``--checkpoint_path`` takes a checkpoint of the port's Trainer (the
-file, its run directory or its ``checkpoints/`` folder, resolved to the
-newest), or a reference-trained ResNet SHAM ``.pth``/``.pt``. A reference
-``.pth`` of SHAM on a ViT exits: the JAX package has no converter for one
-either (its ``convert_sham2`` reads ResNets only). Other modes and
-evaluation types exit with "not yet ported".
+  * ``knn``: kNN for k in {5, 10, 20, 27, 30, 40, 642} in one pass ->
+    ``knn_evaluation_results.txt``;
+  * ``linear_prob``: the L-BFGS linear probe -> ``linear_probe_results.txt``;
+  * ``visualization``: the 2-D projection of the test split ->
+    ``umap_test.npz`` (and ``umap_test.png`` where matplotlib imports);
+  * ``inter_intra_distance``: intra/inter-class variance of both splits ->
+    ``variance_analysis_both.txt``.
+
+``--mode`` is SHAM, simclr or simclr_supcon; other modes exit with "not yet
+ported". ``--device`` defaults to cuda and raises without a card;
+``--device cpu`` runs the kernels' plain twins. ``--model`` is resnet18,
+resnet50 or vit_b_16. ``--checkpoint_path`` takes a checkpoint of the
+port's Trainer (the file, its run directory or its ``checkpoints/`` folder,
+resolved to the newest), or a reference-trained ``.pth``/``.pt``: SHAM or
+SimCLR on a ResNet, or SupCon. A reference ``.pth`` on a ViT exits: SHAM's
+layout is known for ResNets only (the JAX package's ``convert_sham2`` reads
+ResNets only), and SimCLR's ViT is torchvision's, which the port's ViT does
+not read.
 """
 
 from __future__ import annotations
@@ -33,8 +42,11 @@ from hairci_torch.cli.mainpretrain import set_seed
 from hairci_torch.data import DataLoader, load_manifest
 from hairci_torch.eval.classifier import Classifier
 from hairci_torch.eval.knn import full_f32
-from hairci_torch.models.convert import load_torch_state_dict, \
-    sham2_state_dict
+from hairci_torch.models.convert import (
+    load_torch_state_dict,
+    sham2_state_dict,
+    supcon_state_dict,
+)
 from hairci_torch.ssl import build_recipe
 from hairci_torch.train import checkpoint as ckpt_lib
 from hairci_torch.utils.config import merge_config_with_args
@@ -75,13 +87,35 @@ def build_eval_parser() -> argparse.ArgumentParser:
     return p
 
 
+PORTED_MODES = ("SHAM", "simclr", "simclr_supcon")
+
+
 def recipe_for_eval(args):
-    if args.mode != "SHAM":
-        raise SystemExit(f"mode {args.mode!r} is not yet ported "
-                         "(hairci_torch evaluates SHAM only)")
+    if args.mode not in PORTED_MODES:
+        raise SystemExit(f"mode {args.mode!r} is not yet ported; ported: "
+                         f"{', '.join(PORTED_MODES)}")
     return build_recipe(
-        "SHAM", backbone=args.model, img_size=args.size,
+        args.mode, backbone=args.model, img_size=args.size,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
+
+
+def _reference_state_dict(args, path: str):
+    """A reference-trained ``.pth`` in the port's key layout."""
+    if args.mode == "simclr_supcon":
+        return supcon_state_dict(load_torch_state_dict(path))
+    if args.model.startswith("vit"):
+        if args.mode == "SHAM":
+            raise SystemExit(
+                "a reference .pth of SHAM on a ViT cannot be read: the "
+                "reference layout is known for ResNet backbones only (as in "
+                "hairci's convert_sham2); evaluate a checkpoint of this "
+                "package's Trainer instead")
+        raise SystemExit(
+            "a reference .pth of SimCLR on vit_b_16 holds a torchvision "
+            "ViT, whose layout this package's ViT does not read; evaluate a "
+            "checkpoint of this package's Trainer instead")
+    # SHAM and SimCLR: backbone.{0,1,4-7} + projection_head.layers.*
+    return sham2_state_dict(load_torch_state_dict(path))
 
 
 def load_state(recipe, args, device: torch.device):
@@ -89,15 +123,10 @@ def load_state(recipe, args, device: torch.device):
     state = recipe.create_state(args.seed, min(args.batch_size, 8), device)
     path = args.checkpoint_path
     if path and path.endswith((".pth", ".pt")):
-        if args.model.startswith("vit"):
-            raise SystemExit(
-                "a reference .pth of SHAM on a ViT cannot be read: the "
-                "reference layout is known for ResNet backbones only (as in "
-                "hairci's convert_sham2); evaluate a checkpoint of this "
-                "package's Trainer instead")
-        sd = sham2_state_dict(load_torch_state_dict(path))
+        sd = _reference_state_dict(args, path)
         state.online.load_state_dict(sd)
-        state.ema.load_state_dict(sd)
+        if state.ema is not None:
+            state.ema.load_state_dict(sd)
         logging.info("torch checkpoint loaded from %s", path)
     elif path:
         # a run dir or its checkpoints/ folder resolves to the newest one
@@ -122,9 +151,6 @@ def main(argv=None) -> Classifier:
     args = merge_config_with_args(args, parser, argv)
     if args.eval_type is None:
         raise SystemExit("--eval_type is required")
-    if args.eval_type != "knn":
-        raise SystemExit(f"--eval_type {args.eval_type} is not yet ported "
-                         "(hairci_torch evaluates knn only)")
     recipe = recipe_for_eval(args)
     device = resolve_device(args.device)
     set_seed(args.seed)
@@ -143,7 +169,14 @@ def main(argv=None) -> Classifier:
     clf = Classifier(embed_fn, *loaders, args.save_path,
                      batch_size=args.batch_size, device=device)
     with full_f32(args.dtype):
-        clf.knn_eval()
+        if args.eval_type == "knn":
+            clf.knn_eval()
+        elif args.eval_type == "linear_prob":
+            clf.linear_probe_eval()
+        elif args.eval_type == "visualization":
+            clf.save_umap(split="test")
+        else:
+            clf.compute_intra_inter_variance(split="both")
     return clf
 
 

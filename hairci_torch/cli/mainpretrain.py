@@ -1,13 +1,17 @@
 """Pretraining entry point of the port (``hairci/cli/mainpretrain.py``):
-the same flags and YAML, SHAM only so far.
+the same flags and YAML.
 
     python -m hairci_torch.cli.mainpretrain --mode SHAM --model resnet50 \\
         --size 224 --train_annotation data_train.csv --img_dir images/
 
-``--model`` is resnet18, resnet50 or vit_b_16 (ViT-B/16 with block remat);
-``--S2R2`` adds the Smooth-AP term at weight 1. ``--device`` defaults to
-cuda and raises without a card; ``--device cpu`` runs the kernels' plain
-twins. Other modes exit with "not yet ported".
+``--mode`` is SHAM, simclr, S2R2 (SimCLR with the Smooth-AP term) or
+simclr_supcon (SupCon on a CIFAR-stem ResNet). ``--model`` is resnet18,
+resnet50 or vit_b_16 (for SHAM, ViT-B/16 with block remat); ``--S2R2`` adds
+the Smooth-AP term at weight 1 to SHAM and SimCLR. SHAM drops the last
+partial batch; every other mode pads it to the batch size by repeating its
+last row, as the JAX CLI does. ``--device`` defaults to cuda and raises
+without a card; ``--device cpu`` runs the kernels' plain twins. Other modes
+exit with "not yet ported".
 """
 
 from __future__ import annotations
@@ -32,18 +36,33 @@ def set_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
+PORTED_MODES = ("SHAM", "simclr", "S2R2", "simclr_supcon")
+
+
 def build_recipe_from_args(args, num_batches: int):
-    if args.mode != "SHAM":
-        raise SystemExit(f"mode {args.mode!r} is not yet ported "
-                         "(hairci_torch trains SHAM only)")
-    return build_recipe(
-        "SHAM", backbone=args.model, img_size=args.size,
-        temperature=args.temp, learning_rate=args.lr,
+    """The mode dispatch of ``hairci/cli/mainpretrain.py``."""
+    common = dict(
+        img_size=args.size, learning_rate=args.lr,
         weight_decay=args.weight_decay, betas=(args.beta1, args.beta2),
-        ema_momentum=args.ema, warm_up_epochs=args.warm_up_epochs,
-        ablation=args.ablation, num_batches=num_batches,
-        s2r2_weight=1.0 if args.S2R2 else 0.0,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
+    mode = args.mode
+    if mode in ("simclr", "S2R2"):
+        s2r2 = 1.0 if (mode == "S2R2" or args.S2R2) else 0.0
+        return build_recipe("simclr", backbone=args.model,
+                            temperature=args.temp, s2r2_weight=s2r2,
+                            **common)
+    if mode == "SHAM":
+        return build_recipe(
+            "SHAM", backbone=args.model, temperature=args.temp,
+            ema_momentum=args.ema, warm_up_epochs=args.warm_up_epochs,
+            ablation=args.ablation, num_batches=num_batches,
+            s2r2_weight=1.0 if args.S2R2 else 0.0, **common)
+    if mode == "simclr_supcon":
+        # as in the JAX CLI: the backbone and --temp are not passed, so
+        # SupCon trains a CIFAR-stem ResNet-18 at its temperature of 0.07
+        return build_recipe(mode, **common)
+    raise SystemExit(f"mode {mode!r} is not yet ported; ported: "
+                     f"{', '.join(PORTED_MODES)}")
 
 
 def main(argv=None) -> Trainer:
@@ -56,10 +75,12 @@ def main(argv=None) -> Trainer:
     if not args.train_annotation or not args.img_dir:
         raise SystemExit("--train_annotation and --img_dir are required")
     manifest = load_manifest(args.train_annotation, args.img_dir)
+    drop_last = args.mode == "SHAM"
     raw_size = max(args.size, int(args.size * 256 / 224))  # room for the crop
     loader = DataLoader(
         manifest, batch_size=args.batch_size, size=raw_size,
-        mode="raw_resize", shuffle=True, drop_last=True, seed=args.seed,
+        mode="raw_resize", shuffle=True, drop_last=drop_last,
+        pad_last=not drop_last, seed=args.seed,
         num_workers=args.num_workers)
     recipe = build_recipe_from_args(args, num_batches=len(loader))
     with full_f32(args.dtype):

@@ -1,11 +1,12 @@
-"""The SHAM losses (port of the SHAM half of
-``hairci/losses/contrastive.py``): NT-Xent, the triplet margin loss with
-eps inside the absolute value (``torch.nn.TripletMarginLoss``), and the
-margin-violation statistics SHAM logs and adapts k from."""
+"""Contrastive losses (port of ``hairci/losses/contrastive.py``): NT-Xent
+(SimCLR and SHAM), the supervised contrastive loss (SupCon), the triplet
+margin loss with eps inside the absolute value
+(``torch.nn.TripletMarginLoss``), and the margin-violation statistics SHAM
+logs and adapts k from."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +24,41 @@ def nt_xent_loss(z0: torch.Tensor, z1: torch.Tensor,
                           float("-inf"))
     pos = (torch.arange(n, device=z.device) + n // 2) % n
     return -F.log_softmax(sim, dim=1).gather(1, pos[:, None]).mean()
+
+
+def supcon_loss(features: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                temperature: float = 0.07, base_temperature: float = 0.07,
+                contrast_mode: str = "all") -> torch.Tensor:
+    """Supervised contrastive loss (Khosla et al.) on (B, n_views, D)
+    L2-normalised features. ``labels`` (B,) marks the positives; ``None``
+    keeps only the other views of the same sample (the SimCLR case)."""
+    B, V, _ = features.shape
+    # view-major rows: [view 0 of every sample, view 1 of every sample, ...]
+    feats = torch.cat(torch.unbind(features, dim=1), dim=0)
+    if labels is None:
+        mask = torch.eye(B, dtype=torch.float32, device=features.device)
+    else:
+        labels = labels.reshape(B, 1)
+        mask = (labels == labels.T).float()
+    if contrast_mode == "one":
+        anchor, anchor_count = features[:, 0], 1
+    elif contrast_mode == "all":
+        anchor, anchor_count = feats, V
+    else:
+        raise ValueError(contrast_mode)
+    logits = (anchor.float() @ feats.float().T) / temperature
+    logits = logits - logits.max(dim=1, keepdim=True).values.detach()
+    mask = mask.repeat(anchor_count, V)
+    n_anchor = anchor.shape[0]
+    logits_mask = 1.0 - torch.eye(B * V, dtype=torch.float32,
+                                  device=features.device)[:n_anchor]
+    mask = mask * logits_mask
+    exp_logits = torch.exp(logits) * logits_mask
+    log_prob = logits - torch.log(exp_logits.sum(1, keepdim=True) + 1e-12)
+    mask_sum = torch.clamp(mask.sum(1), min=1e-12)
+    mean_log_prob_pos = (mask * log_prob).sum(1) / mask_sum
+    return (-(temperature / base_temperature) * mean_log_prob_pos).mean()
 
 
 def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,

@@ -8,13 +8,17 @@ timm/reference ViT state dict up to the port's key set the way
 ``convert_vit`` + ``merge_params`` do, so a ``.pth`` written by
 ``save_torch_state_dict(export_vit(...))`` and a timm ViT ``.pth`` load alike.
 
-``resnet_state_dict_from_jax`` and ``sham_state_dict_from_jax`` map a JAX
-``ResNet`` / ``SHAMModule`` (params and batch stats) with the key mapping of
-``export_resnet`` and ``export_sham2`` (torchvision layout; the SHAM head as
-``projection_head.layers.{0,1,3,4}``), with the backbone under ``backbone.``
-rather than the reference's ``nn.Sequential`` indices; a ViT SHAM backbone
-maps as ``vit_state_dict_from_jax`` does. ``sham2_state_dict`` renames a
-reference-trained ResNet SHAM ``.pth`` in that ``nn.Sequential`` layout.
+``resnet_state_dict_from_jax``, ``sham_state_dict_from_jax`` and
+``simclr_state_dict_from_jax`` map a JAX ``ResNet`` / ``SHAMModule`` /
+``SimCLRModule`` (params and batch stats) with the key mapping of
+``export_resnet`` and ``export_sham2`` (torchvision layout; the projection
+head as ``projection_head.layers.{0,1,3,4}``), with the backbone under
+``backbone.`` rather than the reference's ``nn.Sequential`` indices; a ViT
+backbone maps as ``vit_state_dict_from_jax`` does. ``sham2_state_dict``
+renames a reference-trained ResNet SHAM or SimCLR ``.pth`` in that
+``nn.Sequential`` layout. ``supcon_state_dict_from_jax`` maps a JAX
+``SupConModule`` and ``supcon_state_dict`` a reference ``SupConResNet``
+``.pth`` (``convert_supcon``) onto the port's ``SupConModule``.
 """
 
 from __future__ import annotations
@@ -101,27 +105,69 @@ def resnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
     return sd
 
 
+def _backbone_from_jax(params: Mapping, batch_stats: Mapping, model: str,
+                       prefix: str) -> Dict[str, torch.Tensor]:
+    """A JAX ResNet or ViT backbone's trees under ``prefix``."""
+    if model.startswith("vit"):
+        depth = sum(1 for k in params if k.startswith("block"))
+        backbone = vit_state_dict_from_jax(params, depth)
+    else:
+        stages, block = resnet._STAGES[model]
+        backbone = resnet_state_dict_from_jax(
+            params, batch_stats, stages, block is resnet.BottleneckBlock)
+    return {f"{prefix}{k}": v for k, v in backbone.items()}
+
+
+def _projection_head_from_jax(sd: Dict[str, torch.Tensor], hp: Mapping,
+                              hs: Mapping) -> None:
+    """A JAX ``simclr_projection_head`` (dense0, bn0, dense1, bn1) as
+    ``projection_head.layers.{0,1,3,4}``."""
+    for i, (lin, bn) in enumerate((("0", "1"), ("3", "4"))):
+        sd[f"projection_head.layers.{lin}.weight"] = _t(
+            np.asarray(hp[f"dense{i}"]["kernel"]).T)
+        _put_bn(sd, f"projection_head.layers.{bn}", hp[f"bn{i}"], hs[f"bn{i}"])
+
+
 def sham_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                              model: str = "resnet18"
                              ) -> Dict[str, torch.Tensor]:
     """JAX ``SHAMModule`` (params, batch_stats) -> the port's ``SHAMModule``
     state dict (load with ``strict=True``). ``model`` is the backbone's name:
     a ResNet, or ``vit_b_16`` / ``vit_base_patch16``."""
-    if model.startswith("vit"):
-        bp = params["backbone"]
-        depth = sum(1 for k in bp if k.startswith("block"))
-        backbone = vit_state_dict_from_jax(bp, depth)
-    else:
-        stages, block = resnet._STAGES[model]
-        backbone = resnet_state_dict_from_jax(
-            params["backbone"], batch_stats["backbone"], stages,
-            block is resnet.BottleneckBlock)
-    sd = {f"backbone.{k}": v for k, v in backbone.items()}
-    hp, hs = params["projection_head"], batch_stats["projection_head"]
-    for i, (lin, bn) in enumerate((("0", "1"), ("3", "4"))):
-        sd[f"projection_head.layers.{lin}.weight"] = _t(
-            np.asarray(hp[f"dense{i}"]["kernel"]).T)
-        _put_bn(sd, f"projection_head.layers.{bn}", hp[f"bn{i}"], hs[f"bn{i}"])
+    sd = _backbone_from_jax(params["backbone"],
+                            batch_stats.get("backbone", {}), model,
+                            "backbone.")
+    _projection_head_from_jax(sd, params["projection_head"],
+                              batch_stats["projection_head"])
+    return sd
+
+
+def simclr_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                               model: str = "resnet50"
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX ``SimCLRModule`` (params, batch_stats; its head is ``head``) ->
+    the port's ``SimCLRModule`` state dict (load with ``strict=True``)."""
+    sd = _backbone_from_jax(params["backbone"],
+                            batch_stats.get("backbone", {}), model,
+                            "backbone.")
+    _projection_head_from_jax(sd, params["head"], batch_stats["head"])
+    return sd
+
+
+def supcon_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                               model: str = "resnet18"
+                               ) -> Dict[str, torch.Tensor]:
+    """JAX ``SupConModule`` (params, batch_stats) -> the port's
+    ``SupConModule`` state dict (load with ``strict=True``): the encoder,
+    and ``head_fc1``/``head_fc2`` as ``head.0``/``head.2`` (``mlp``) or
+    ``head_fc`` as ``head`` (``linear``)."""
+    sd = _backbone_from_jax(params["encoder"], batch_stats["encoder"], model,
+                            "encoder.")
+    names = ({"head_fc": "head"} if "head_fc" in params
+             else {"head_fc1": "head.0", "head_fc2": "head.2"})
+    for jax_name, name in names.items():
+        sd[f"{name}.weight"] = _t(np.asarray(params[jax_name]["kernel"]).T)
+        sd[f"{name}.bias"] = _t(params[jax_name]["bias"])
     return sd
 
 
@@ -147,6 +193,25 @@ def sham2_state_dict(sd: Mapping[str, torch.Tensor]
             head, _, tail = key[len("backbone."):].partition(".")
             if head in _SEQUENTIAL_RESNET and tail:
                 out[f"backbone.{_SEQUENTIAL_RESNET[head]}.{tail}"] = value
+    return out
+
+
+def supcon_state_dict(sd: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """A reference ``SupConResNet`` checkpoint (``encoder.`` with
+    ``shortcut.{0,1}`` for torchvision's ``downsample.{0,1}``, the head as
+    ``head.0``/``head.2`` or ``head``) -> the port's ``SupConModule`` state
+    dict, as ``hairci/retrieval/torch_import.py:convert_supcon`` reads it.
+    ``num_batches_tracked`` counters and keys of other modules are dropped;
+    load with ``strict=True``."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key.startswith("encoder."):
+            out[key.replace(".shortcut.", ".downsample.")] = value
+        elif key.startswith("head."):
+            out[key] = value
     return out
 
 

@@ -1,4 +1,7 @@
-"""Projection heads (port of ``hairci/models/heads.py:MLPHead``)."""
+"""Projection heads (port of ``hairci/models/heads.py``): ``MLPHead``, the
+SimCLR projection head with its widths by backbone (``_PROJ_DIMS`` of
+``hairci/ssl/simclr.py``), and SupCon's ``mlp`` and ``linear`` heads
+(``hairci/ssl/supcon.py:SupConModule``)."""
 
 from __future__ import annotations
 
@@ -53,3 +56,37 @@ class MLPHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layers(x.to(self.dtype)).float()
+
+
+# the reference SimCLR head, SimCLRProjectionHead(D, hidden, out), by
+# backbone: (hidden, out)
+SIMCLR_PROJ_DIMS = {
+    "resnet18": (512, 128),
+    "resnet34": (512, 128),
+    "resnet50": (2048, 1024),
+    "resnet101": (2048, 1024),
+    "vit_b_16": (768, 512),
+    "vit_base_patch16": (768, 512),
+}
+
+
+def simclr_projection_head(in_dim: int, hidden: int = 2048, out: int = 128,
+                           dtype: torch.dtype = torch.float32) -> MLPHead:
+    """lightly SimCLRProjectionHead: Dense+BN+ReLU, Dense+BN."""
+    return MLPHead(in_dim, [(hidden, True, True), (out, True, False)],
+                   dtype=dtype)
+
+
+def supcon_head(in_dim: int, head: str = "mlp", feat_dim: int = 128,
+                dtype: torch.dtype = torch.float32) -> nn.Module:
+    """SupConResNet's head in the reference's key layout: ``mlp`` is
+    Linear(D, D), ReLU, Linear(D, feat_dim) (keys ``0`` and ``2``),
+    ``linear`` one Linear(D, feat_dim); every layer has a bias and computes
+    in ``dtype``."""
+    if head == "linear":
+        return Linear(in_dim, feat_dim, bias=True, dtype=dtype)
+    if head == "mlp":
+        return nn.Sequential(Linear(in_dim, in_dim, bias=True, dtype=dtype),
+                             nn.ReLU(),
+                             Linear(in_dim, feat_dim, bias=True, dtype=dtype))
+    raise ValueError(f"unknown SupCon head {head!r}")

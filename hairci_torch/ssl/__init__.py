@@ -1,4 +1,5 @@
-"""Self-supervised recipes (port of hairci.ssl): SHAM."""
+"""Self-supervised recipes (port of hairci.ssl): SHAM, SimCLR (with the
+S2R2 term) and SupCon."""
 
 from hairci_torch.ssl.base import RECIPES, build_recipe, register_recipe
 

@@ -2,7 +2,7 @@
 
 A recipe owns its modules and exposes ``create_state``, ``train_step`` and
 ``extract_features``; ``build_recipe`` is keyed on the reference ``--mode``
-strings. Only SHAM is ported so far.
+strings. Ported: ``SHAM``, ``simclr`` and ``simclr_supcon``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,18 @@ def backbone_features(backbone: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return backbone(x)
 
 
+@torch.no_grad()
+def eval_features(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module.extract_features(x)`` in eval mode (running BN statistics),
+    the module's mode restored afterwards."""
+    was_training = module.training
+    module.eval()
+    try:
+        return module.extract_features(x)
+    finally:
+        module.train(was_training)
+
+
 RECIPES: Dict[str, Any] = {}
 
 
@@ -36,7 +48,8 @@ def register_recipe(name: str):
 
 
 def build_recipe(mode: str, **kwargs):
-    from hairci_torch.ssl import sham as _sham  # noqa: F401  (registers)
+    # importing a recipe module registers it
+    from hairci_torch.ssl import sham, simclr, supcon  # noqa: F401
 
     if mode not in RECIPES:
         raise NotImplementedError(

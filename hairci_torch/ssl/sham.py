@@ -54,7 +54,11 @@ from hairci_torch.losses.ranking import s2r2_loss
 from hairci_torch.models.heads import MLPHead
 from hairci_torch.models.resnet import build_resnet
 from hairci_torch.models.vit import build_vit
-from hairci_torch.ssl.base import backbone_features, register_recipe
+from hairci_torch.ssl.base import (
+    backbone_features,
+    eval_features,
+    register_recipe,
+)
 from hairci_torch.train.optim import (
     clip_grad_global_norm_,
     fill_missing_grads_,
@@ -272,23 +276,14 @@ class SHAMRecipe:
         }
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def _features(self, module: nn.Module, images: torch.Tensor):
-        was_training = module.training
-        module.eval()
-        try:
-            return module.extract_features(knn_transform(images,
-                                                         self.img_size))
-        finally:
-            module.train(was_training)
-
     def extract_features(self, state: TrainState,
                          images: torch.Tensor) -> torch.Tensor:
-        return self._features(state.online, images)
+        return eval_features(state.online,
+                             knn_transform(images, self.img_size))
 
     def extract_features_ema(self, state: TrainState,
                              images: torch.Tensor) -> torch.Tensor:
-        return self._features(state.ema, images)
+        return eval_features(state.ema, knn_transform(images, self.img_size))
 
     @staticmethod
     def adapt_k(prev_margin_violations: float, batch_size: int) -> int:

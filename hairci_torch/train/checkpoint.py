@@ -1,10 +1,11 @@
 """Checkpoints (port of ``hairci/train/checkpoint.py``).
 
-A checkpoint is one ``torch.save`` file holding the online and EMA module
-states, the optimizer, the mined-negative cache, the step and the epoch:
-everything resume needs, EMA and cache included. The cadence follows the
-JAX engine: ``model_ckpt_<epoch>`` every 50 epochs plus ``model_ckpt_latest``
-each epoch. JAX's Orbax directories cannot be read here (no JAX).
+A checkpoint is one ``torch.save`` file holding the online module's state,
+the optimizer, the step and the epoch, and the EMA module's state and the
+mined-negative cache where the state has them (SHAM): everything resume
+needs. A SHAM checkpoint keeps the key set it always had. The cadence
+follows the JAX engine: ``model_ckpt_<epoch>`` every 50 epochs plus
+``model_ckpt_latest`` each epoch. JAX's Orbax directories cannot be read here (no JAX).
 """
 
 from __future__ import annotations
@@ -25,24 +26,28 @@ def save_checkpoint(save_path: str, name: str, state: TrainState,
     """Write ``<save_path>/<name>`` atomically; returns its path."""
     path = os.path.abspath(os.path.join(save_path, name))
     tmp = path + ".tmp"
-    torch.save({"online": state.online.state_dict(),
-                "ema": state.ema.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "neg_indices": state.neg_indices,
-                "step": state.step,
-                "epoch": epoch}, tmp)
+    # the keys in the order a SHAM checkpoint has always had them
+    ckpt = {"online": state.online.state_dict(),
+            "ema": None if state.ema is None else state.ema.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "neg_indices": state.neg_indices,
+            "step": state.step,
+            "epoch": epoch}
+    torch.save({k: v for k, v in ckpt.items() if v is not None}, tmp)
     os.replace(tmp, path)
     return path
 
 
 def restore_checkpoint(path: str, state: TrainState) -> int:
     """Load ``path`` into ``state`` in place; returns the saved epoch."""
-    device = state.neg_indices.device
+    device = next(state.online.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
     state.online.load_state_dict(ckpt["online"])
-    state.ema.load_state_dict(ckpt["ema"])
+    if state.ema is not None:
+        state.ema.load_state_dict(ckpt["ema"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
-    state.neg_indices.copy_(ckpt["neg_indices"])
+    if state.neg_indices is not None:
+        state.neg_indices.copy_(ckpt["neg_indices"])
     state.step = int(ckpt["step"])
     return int(ckpt["epoch"])
 

@@ -1,12 +1,16 @@
-"""Training engine (port of ``hairci/train/engine.py``, SHAM only).
+"""Training engine (port of ``hairci/train/engine.py``).
 
-The epoch loop stages SHAM on the host (warmup -> mine -> mined, with k
-adapted from the previous epoch's violations at the boundary), feeds each
-uint8 batch to the card through pinned memory, and keeps the step metrics
-on the card until the epoch ends: one host sync per epoch. It writes the
-JAX engine's ``training_log.txt`` line and ``metrics.jsonl``, and a
-checkpoint every 50 epochs plus ``model_ckpt_latest``; resume restores the
-EMA and the negative cache too.
+The epoch loop feeds each uint8 batch and its labels to the card through
+pinned memory and keeps the step metrics on the card until the epoch ends:
+one host sync per epoch. SHAM is staged on the host (warmup -> mine ->
+mined, with k adapted from the previous epoch's violations at the
+boundary); every other recipe takes the plain step, with the batch's
+labels. It writes the JAX engine's ``training_log.txt`` line (SHAM's, or
+``Loss =`` for every other mode) and ``metrics.jsonl``, and a checkpoint
+every 50 epochs plus ``model_ckpt_latest``; resume restores SHAM's EMA and
+negative cache too. The JAX engine's dinov2 branch (per-step teacher
+temperature and momentum) and its per-epoch momentum branch (BYOL, DenseCL,
+SiameseIM) come with the recipes that need them.
 """
 
 from __future__ import annotations
@@ -94,25 +98,33 @@ class Trainer:
                 f"samples with batch_size={args.batch_size} and "
                 f"drop_last={getattr(self.train_loader, 'drop_last', '?')}")
         state = self.state = self.create_or_restore_state()
+        is_sham = args.mode == "SHAM"
 
         for epoch in range(self.start_epoch, args.epochs):
             self.train_loader.set_epoch(epoch)
             epoch_metrics = []
             t0 = time.perf_counter()
             n_images = 0
-            stage = self.recipe.stage_for_epoch(epoch)
-            if stage == "mine":
-                total_k = self.recipe.adapt_k(self.prev_margin_violations,
-                                              args.batch_size)
-                log.info("epoch %d: mining hard negatives with k=%d", epoch,
-                         total_k)
-            for batch_id, (images, _labels) in enumerate(self.train_loader):
+            if is_sham:
+                stage = self.recipe.stage_for_epoch(epoch)
+                if stage == "mine":
+                    total_k = self.recipe.adapt_k(
+                        self.prev_margin_violations, args.batch_size)
+                    log.info("epoch %d: mining hard negatives with k=%d",
+                             epoch, total_k)
+            for batch_id, (images, labels) in enumerate(self.train_loader):
                 gen = torch.Generator().manual_seed(
                     step_seed(seed, epoch, batch_id))
                 x = to_device(torch.from_numpy(images), self.device)
-                epoch_metrics.append(self.recipe.train_step(
-                    state, x, gen, stage=stage, batch_id=batch_id,
-                    k=total_k))
+                if is_sham:
+                    metrics = self.recipe.train_step(
+                        state, x, gen, stage=stage, batch_id=batch_id,
+                        k=total_k)
+                else:
+                    y = to_device(torch.from_numpy(
+                        np.asarray(labels, np.int64)), self.device)
+                    metrics = self.recipe.train_step(state, x, gen, labels=y)
+                epoch_metrics.append(metrics)
                 n_images += images.shape[0]
             if not epoch_metrics:
                 continue
@@ -121,7 +133,8 @@ class Trainer:
             means = torch.stack([torch.stack([m[k].float() for k in keys])
                                  for m in epoch_metrics]).mean(0).tolist()
             stacked: Dict[str, Any] = dict(zip(keys, means))
-            self.prev_margin_violations = stacked["margin_violations"]
+            if is_sham:
+                self.prev_margin_violations = stacked["margin_violations"]
             stacked["epoch"] = epoch
             stacked["images_per_sec"] = n_images / (time.perf_counter() - t0)
             self._log_epoch(epoch, stacked, total_k)
@@ -138,16 +151,20 @@ class Trainer:
                    total_k) -> None:
         with open(self.metrics_file, "a") as f:
             f.write(json.dumps(metrics) + "\n")
-        line = (
-            f"\nEpoch {epoch}: Total Loss = {metrics.get('loss', 0):.6f}, "
-            f"Contrastive Loss = {metrics.get('contrastive_loss', 0):.6f}, "
-            f"Triplet Loss = {metrics.get('triplet_loss', 0):.6f}, "
-            f"MSE loss = {metrics.get('mse_loss', 0):.6f}, "
-            f"Positive distance = {metrics.get('pos_dist', 0):.6f}, "
-            f"Negative distance = {metrics.get('neg_dist', 0):.6f}, "
-            f"Margin violations: {metrics.get('margin_violations', 0)}, "
-            f"Total k: {total_k}\n"
-        )
+        m = metrics.get
+        if self.args.mode == "SHAM":
+            line = (
+                f"\nEpoch {epoch}: Total Loss = {m('loss', 0):.6f}, "
+                f"Contrastive Loss = {m('contrastive_loss', 0):.6f}, "
+                f"Triplet Loss = {m('triplet_loss', 0):.6f}, "
+                f"MSE loss = {m('mse_loss', 0):.6f}, "
+                f"Positive distance = {m('pos_dist', 0):.6f}, "
+                f"Negative distance = {m('neg_dist', 0):.6f}, "
+                f"Margin violations: {m('margin_violations', 0)}, "
+                f"Total k: {total_k}\n"
+            )
+        else:
+            line = f"\nEpoch {epoch}: Loss = {m('loss', 0):.6f}\n"
         with open(self.log_file, "a") as f:
             f.write(line)
         log.info("epoch %d: %s", epoch,

@@ -1,7 +1,8 @@
 """Train state (port of ``hairci/train/state.py``).
 
-The JAX pytree becomes one mutable object: the online module, its EMA
-teacher copy, the optimizer, the mined-negative cache and the step count.
+The JAX pytree becomes one mutable object: the online module, the
+optimizer, the step count and, for SHAM only, the EMA teacher copy and the
+mined-negative cache (SimCLR and SupCon have neither).
 The port updates it in place (the JAX step returns a new state), which keeps
 one copy of the weights and optimizer moments on the card.
 """
@@ -18,8 +19,8 @@ from torch import nn
 @dataclasses.dataclass
 class TrainState:
     online: nn.Module
-    ema: nn.Module
     optimizer: torch.optim.Optimizer
+    ema: Optional[nn.Module] = None
     # staged hard-negative cache: (num_batches, B) neighbour indices
     neg_indices: Optional[torch.Tensor] = None
     step: int = 0

@@ -1,7 +1,8 @@
 """The port's kNN evaluation (``hairci_torch/eval``) against the JAX package
 on seeded numpy features: predictions equal at every k (duplicated rows,
 vote ties, k > N, chunked queries), feature extraction with a padded last
-batch, the ``Classifier``'s result file byte for byte, the numpy report
+batch, the ``Classifier``'s result files (the kNN and linear-probe files
+byte for byte, the variance and the 2-D projection by value), the numpy report
 against sklearn, and ``resize`` / ``test_transform`` against JAX."""
 
 import jax
@@ -221,10 +222,22 @@ def test_classifier_file_matches_jax_byte_for_byte(tmp_path):
     for a, b in zip(ours.extracting_features(), ref.extracting_features()):
         np.testing.assert_allclose(a, b, atol=1e-6)
     assert ours.extracting_features() is ours.extracting_features()
-    for call in (ours.linear_probe_eval, ours.save_umap,
-                 ours.compute_intra_inter_variance):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+    # the other three evaluations on the same cached features
+    assert ours.linear_probe_eval() == ref.linear_probe_eval()
+    name = "linear_probe_results.txt"
+    assert (tmp_path / "port" / name).read_bytes() == \
+        (tmp_path / "jax" / name).read_bytes()
+    got, want = (c.compute_intra_inter_variance() for c in (ours, ref))
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5)
+    assert (tmp_path / "port" / "variance_analysis_test.txt").is_file()
+    coords = [np.load(c.save_umap().replace(".png", ".npz"))["coords"]
+              for c in (ours, ref)]
+    for j in range(2):      # each principal axis up to its sign
+        sign = np.sign(np.dot(coords[0][:, j], coords[1][:, j]))
+        np.testing.assert_allclose(sign * coords[0][:, j], coords[1][:, j],
+                                   atol=1e-4 * np.abs(coords[1]).max())
 
 
 @pytest.mark.parametrize("case", ["random", "one_class_predicted",

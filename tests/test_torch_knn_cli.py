@@ -1,9 +1,11 @@
-"""The port's kNN evaluation slice as a whole, through
+"""The port's evaluation slice as a whole, through
 ``hairci_torch.cli.knn_classification.main`` on the CPU, against the JAX
 package: a ResNet-18 SHAM model at 40 px on committed images, the same
 weights in both (one reference-layout ``.pth``), the same features,
-predictions and result file; the parser's Namespace; checkpoints of the
-port's Trainer, ResNet and ViT; and what is not ported yet."""
+predictions and result files for all four ``--eval_type``s; reference
+SimCLR and SupCon ``.pth`` files; the parser's Namespace; checkpoints of the
+port's Trainer (SHAM on a ResNet and a ViT, SimCLR); and what is not ported
+yet."""
 
 import types
 from pathlib import Path
@@ -183,13 +185,17 @@ def test_cli_refuses_what_is_not_ported(slice_, tmp_path):
         out[out.index(flag) + 1] = value
         return out
 
-    for argv in (swap("--mode", "simclr"), swap("--eval_type", "linear_prob"),
-                 swap("--eval_type", "visualization")):
+    for argv in (swap("--mode", "mae"), swap("--mode", "dinov2")):
         with pytest.raises(SystemExit, match="not yet ported"):
             cli.main(argv)
     # a reference .pth of SHAM on a ViT: no converter in either package
     with pytest.raises(SystemExit, match="ResNet backbones only"):
         cli.main(swap("--model", "vit_b_16"))
+    # a reference SimCLR .pth on vit_b_16 holds a torchvision ViT
+    vit_simclr = swap("--model", "vit_b_16")
+    vit_simclr[vit_simclr.index("--mode") + 1] = "simclr"
+    with pytest.raises(SystemExit, match="torchvision ViT"):
+        cli.main(vit_simclr)
     no_type = list(base)
     del no_type[no_type.index("--eval_type"):no_type.index("--eval_type") + 2]
     with pytest.raises(SystemExit, match="--eval_type is required"):
@@ -232,3 +238,136 @@ def test_vit_trainer_checkpoint_evaluates(tmp_path, monkeypatch):
         trainer.state, torch.from_numpy(eval_images))
     direct = direct / direct.norm(dim=1, keepdim=True)
     np.testing.assert_allclose(te_f, direct.numpy(), atol=1e-6)
+
+
+def _coords_up_to_sign(ours, ref):
+    for j in range(ref.shape[1]):
+        sign = np.sign(np.dot(ours[:, j], ref[:, j]))
+        np.testing.assert_allclose(sign * ours[:, j], ref[:, j],
+                                   atol=1e-4 * np.abs(ref).max())
+
+
+def test_cli_eval_types_match_jax(slice_, tmp_path):
+    """``--eval_type linear_prob | visualization | inter_intra_distance`` on
+    the slice's SHAM ``.pth``, against the JAX ``Classifier``'s methods on
+    JAX's features: the probe's file byte for byte, the 2-D projection of
+    the test split up to sign, the variance of both splits at rtol 1e-5."""
+    jclf, root = slice_["jclf"], slice_["root"]
+    base = slice_["argv"] + ["--device", "cpu"]
+
+    def run(eval_type):
+        argv = list(base)
+        argv[argv.index("--eval_type") + 1] = eval_type
+        return cli.main(argv + ["--save_path", str(tmp_path / eval_type)])
+
+    run("linear_prob")
+    jclf.linear_probe_eval()
+    name = "linear_probe_results.txt"
+    assert (tmp_path / "linear_prob" / name).read_bytes() == \
+        (root / "jax" / name).read_bytes()
+
+    run("visualization")
+    ours = np.load(tmp_path / "visualization" / "umap_test.npz")
+    ref = np.load(jclf.save_umap(split="test").replace(".png", ".npz"))
+    np.testing.assert_array_equal(ours["labels"], ref["labels"])
+    assert ours["coords"].shape == (6, 2)
+    _coords_up_to_sign(ours["coords"], ref["coords"])
+
+    clf = run("inter_intra_distance")
+    want = jclf.compute_intra_inter_variance(split="both")
+    got = clf.compute_intra_inter_variance(split="both")
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5)
+    text = (tmp_path / "inter_intra_distance"
+            / "variance_analysis_both.txt").read_text()
+    assert text.startswith("Embedding Geometry Analysis\n")
+
+
+@pytest.mark.parametrize("mode", ["simclr", "simclr_supcon"])
+def test_baseline_pth_matches_jax(mode, tmp_path):
+    """A reference SimCLR ``.pth`` (the SHAM layout: ``backbone.{0,1,4-7}``
+    + ``projection_head.layers``) and a reference ``SupConResNet`` ``.pth``
+    (``encoder.`` with ``shortcut``, ``head.0``/``head.2``), written from
+    seeded JAX weights: the JAX package reads them with ``convert_simclr``
+    / ``convert_supcon``, the port through ``--checkpoint_path``; the same
+    features and the same kNN file."""
+    train_csv, test_csv = _manifests(tmp_path)
+    path = str(tmp_path / f"{mode}.pth")
+    argv = _argv(tmp_path, train_csv, test_csv, "--checkpoint_path", path)
+    argv[argv.index("--mode") + 1] = mode
+    jargs = jax_cli.build_eval_parser().parse_args(
+        argv + ["--save_path", str(tmp_path / "jax")])
+    jrec = jax_cli.recipe_for_eval(jargs)
+    rng = np.random.default_rng(1)
+    sample = rng.normal(size=(2, SIZE, SIZE, 3)).astype(np.float32)
+    params, stats = random_variables(jrec.module, sample, rng, train=True)
+    if mode == "simclr":
+        sd = ti.export_sham2(
+            {"backbone": params["backbone"], "projection_head":
+             params["head"]},
+            {"backbone": stats["backbone"], "projection_head":
+             stats["head"]}, "resnet18")
+        jparams, jstats = ti.convert_simclr(sd, "resnet18")
+    else:
+        sd = {f"encoder.{k.replace('.downsample.', '.shortcut.')}": v
+              for k, v in ti.export_resnet(params["encoder"],
+                                           stats["encoder"]).items()}
+        for i in (1, 2):
+            sd[f"head.{2 * i - 2}.weight"] = np.asarray(
+                params[f"head_fc{i}"]["kernel"]).T
+            sd[f"head.{2 * i - 2}.bias"] = np.asarray(
+                params[f"head_fc{i}"]["bias"])
+        jparams, jstats = ti.convert_supcon(sd, "resnet18")
+    ti.save_torch_state_dict(sd, path)
+    jstate = types.SimpleNamespace(params=jparams, batch_stats=jstats)
+    loaders = [JaxDataLoader(jax_load_manifest(csv, str(IMG_DIR)), BATCH,
+                             size=SIZE, mode="center_crop", shuffle=False,
+                             num_workers=1)
+               for csv in (train_csv, test_csv)]
+    jclf = JaxClassifier(lambda im: jrec.extract_features(jstate, im),
+                         *loaders, str(tmp_path / "jax"), batch_size=BATCH)
+    jclf.knn_eval()
+
+    clf = cli.main(argv + ["--device", "cpu", "--save_path",
+                           str(tmp_path / "port")])
+    assert clf.extracting_features()[0].shape == (10, 512)
+    for a, b in zip(clf.extracting_features(), jclf.extracting_features()):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    name = "knn_evaluation_results.txt"
+    assert (tmp_path / "port" / name).read_text() == \
+        (tmp_path / "jax" / name).read_text()
+
+
+def test_simclr_trainer_checkpoint_takes_every_eval_type(tmp_path):
+    """A checkpoint of the port's SimCLR run (one epoch, its last batch
+    padded) through all four ``--eval_type``s: each writes its file from
+    the checkpoint's online backbone, unit-norm features."""
+    train_csv, test_csv = _manifests(tmp_path, n_train=10, n_test=3)
+    common = ["--mode", "simclr", "--model", "resnet18", "--size", "32",
+              "--device", "cpu", "--dtype", "float32", "--batch_size", "4",
+              "--num_workers", "1", "--train_annotation", train_csv,
+              "--img_dir", str(IMG_DIR)]
+    trainer = mainpretrain.main(common + [
+        "--epochs", "1", "--save_path", str(tmp_path / "out")])
+    assert trainer.state.step == 3
+    files = {"knn": "knn_evaluation_results.txt",
+             "linear_prob": "linear_probe_results.txt",
+             "visualization": "umap_test.npz",
+             "inter_intra_distance": "variance_analysis_both.txt"}
+    for eval_type, name in files.items():
+        clf = cli.main(common + [
+            "--eval_type", eval_type, "--checkpoint_path",
+            trainer.save_path, "--test_annotation", test_csv,
+            "--save_path", str(tmp_path / eval_type)])
+        assert (tmp_path / eval_type / name).is_file(), eval_type
+    tr_f, _, te_f, _ = clf.extracting_features()
+    assert tr_f.shape == (10, 512) and te_f.shape == (3, 512)
+    np.testing.assert_allclose(np.linalg.norm(tr_f, axis=1), 1, atol=1e-5)
+    eval_images = next(iter(clf.test_loader))[0]
+    direct = trainer.recipe.extract_features(
+        trainer.state, torch.from_numpy(eval_images))
+    direct = direct / direct.norm(dim=1, keepdim=True)
+    np.testing.assert_allclose(te_f, direct.numpy(), atol=1e-6)
+    text = (tmp_path / "inter_intra_distance"
+            / "variance_analysis_both.txt").read_text()
+    assert "variance_ratio" in text

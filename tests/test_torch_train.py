@@ -1,7 +1,9 @@
-"""The port's SHAM training path around the step, against the JAX
-package: the losses, the negative samplers, the staging rules, the config
-parser, and ``python -m hairci_torch.cli.mainpretrain`` with its log format
-and resume."""
+"""The port's training path around the step, against the JAX package: the
+losses, the negative samplers, the staging rules, the config parser,
+``python -m hairci_torch.cli.mainpretrain`` for SHAM with its log format and
+resume, SimCLR and SupCon through the same CLI with a padded last batch and
+the ``Loss =`` log line, and checkpoints without an EMA teacher and written
+before there were such checkpoints."""
 
 import json
 import re
@@ -19,6 +21,8 @@ import torch
 from hairci.losses.contrastive import margin_violation_stats as j_viol
 from hairci.losses.contrastive import nt_xent_loss as j_ntx
 from hairci.losses.contrastive import triplet_margin_loss as j_trip
+from hairci.data.loader import DataLoader as JaxDataLoader
+from hairci.data.manifest import load_manifest as jax_load_manifest
 from hairci.ssl.sham import SHAMRecipe as JaxSHAMRecipe
 from hairci.ssl.sham import derangement as j_derangement
 from hairci.ssl.sham import kth_neighbor_indices as j_kth
@@ -35,6 +39,7 @@ from hairci_torch.ssl.sham import (
     derangement,
     kth_neighbor_indices,
 )
+from hairci_torch.train import checkpoint as ckpt_lib
 from hairci_torch.utils.config import parse_pretrain_args
 
 torch.set_num_threads(1)
@@ -165,8 +170,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     csv, img_dir = _manifest(tmp_path)
     base = ["--device", "cpu", "--train_annotation", str(csv), "--img_dir",
             str(img_dir), "--save_path", str(tmp_path)]
-    with pytest.raises(SystemExit, match="not yet ported"):
-        mainpretrain.main(base + ["--mode", "simclr"])
+    for mode in ("mae", "BYOL"):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            mainpretrain.main(base + ["--mode", mode])
 
 
 def test_cli_trains_vit_sham_with_s2r2(tmp_path, monkeypatch):
@@ -202,3 +208,117 @@ def test_cli_trains_vit_sham_with_s2r2(tmp_path, monkeypatch):
             + 0.2 * m["mse_loss"]
         assert 0 < m["loss"] - rest <= 1 + 1e-5
     assert trainer.state.step == 6
+
+
+# ---------------------------------------------------------------------------
+# SimCLR and SupCon through the CLI; checkpoints
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["simclr", "simclr_supcon"])
+def test_cli_trains_baseline_with_padded_last_batch(tmp_path, mode):
+    """10 images at batches of 4: every epoch ends in a batch padded with
+    its last row, as the JAX loader pads it; the log has the JAX engine's
+    ``Loss =`` line; the checkpoint has no EMA and no negative cache, and
+    resumes."""
+    csv, img_dir = _manifest(tmp_path, n=10)
+    argv = ["--mode", mode, "--model", "resnet18", "--size", "32",
+            "--device", "cpu", "--dtype", "float32", "--batch_size", "4",
+            "--epochs", "2", "--num_workers", "1", "--train_annotation",
+            str(csv), "--img_dir", str(img_dir), "--save_path",
+            str(tmp_path / "out")]
+    trainer = mainpretrain.main(argv)
+    loader = trainer.train_loader
+    assert len(loader) == 3 and loader.pad_last and not loader.drop_last
+    ref = JaxDataLoader(jax_load_manifest(str(csv), str(img_dir)), 4,
+                        size=loader.size, mode="raw_resize", shuffle=True,
+                        drop_last=False, pad_last=True, seed=42,
+                        num_workers=1)
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        ours, want = list(loader), list(ref)
+        assert len(ours) == len(want) == 3
+        for (x, y), (rx, ry) in zip(ours, want):
+            np.testing.assert_array_equal(x, rx)
+            np.testing.assert_array_equal(y, ry)
+        x, y = ours[-1]
+        assert x.shape[0] == 4 and (x[2] == x[3]).all() and y[2] == y[3]
+    assert trainer.state.step == 6
+
+    run = Path(trainer.save_path)
+    metrics = [json.loads(s) for s in (run / "metrics.jsonl").read_text()
+               .splitlines()]
+    assert [m["epoch"] for m in metrics] == [0, 1]
+    assert all(np.isfinite(m["loss"]) for m in metrics)
+    fake = types.SimpleNamespace(args=types.SimpleNamespace(mode=mode),
+                                 metrics_file=str(tmp_path / "j.jsonl"),
+                                 log_file=str(tmp_path / "j.txt"))
+    for m in metrics:
+        JaxTrainer._log_epoch(fake, m["epoch"], m, 7)
+    log = (run / "training_log.txt").read_text()
+    assert log == (tmp_path / "j.txt").read_text()
+    assert re.fullmatch(r"(\nEpoch \d: Loss = \d+\.\d{6}\n){2}", log)
+
+    ckpt = torch.load(run / "model_ckpt_latest", weights_only=True)
+    assert set(ckpt) == {"online", "optimizer", "step", "epoch"}
+    assert ckpt["step"] == 6 and ckpt["epoch"] == 1
+    resumed = mainpretrain.main(argv + ["--continue_training", "--epochs",
+                                        "3", "--checkpoint_folder",
+                                        str(run)])
+    assert resumed.start_epoch == 2 and resumed.state.step == 9
+    assert resumed.state.ema is None
+
+
+def test_simclr_checkpoint_round_trip(tmp_path):
+    """A SimCLR state saves without an EMA and restores exactly: the online
+    weights, the BN stats, the Adam moments and the step."""
+    from hairci_torch.ssl import build_recipe
+
+    rec = build_recipe("simclr", backbone="resnet18", img_size=32)
+    state = rec.create_state(0, 4, torch.device("cpu"))
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4, 36, 36, 3), np.uint8))
+    rec.train_step(state, images, torch.Generator().manual_seed(1))
+    path = ckpt_lib.save_checkpoint(str(tmp_path), "model_ckpt_latest",
+                                    state, 4)
+    fresh = rec.create_state(1, 4, torch.device("cpu"))
+    assert ckpt_lib.restore_checkpoint(path, fresh) == 4
+    assert fresh.step == 1 and fresh.ema is None
+    for (name, t), u in zip(state.online.state_dict().items(),
+                            fresh.online.state_dict().values()):
+        assert torch.equal(t, u), name
+    a, b = state.optimizer.state_dict(), fresh.optimizer.state_dict()
+    for i, st in a["state"].items():
+        for k in st:
+            assert torch.equal(st[k], b["state"][i][k])
+
+
+def test_sham_checkpoint_of_the_old_layout_restores(tmp_path):
+    """A SHAM checkpoint as the Trainer wrote it before ``TrainState``'s
+    EMA and negative cache became optional (the keys and their order built
+    here by hand) restores into today's state; today's SHAM checkpoint has
+    the same keys in the same order."""
+    rec = SHAMRecipe(backbone="resnet18", img_size=32, num_batches=2)
+    old = rec.create_state(0, 4, torch.device("cpu"))
+    with torch.no_grad():
+        for p in old.ema.parameters():
+            p.add_(1.0)
+    old.neg_indices.copy_(torch.arange(8).reshape(2, 4).flip(1))
+    old.step = 5
+    path = tmp_path / "model_ckpt_latest"
+    torch.save({"online": old.online.state_dict(),
+                "ema": old.ema.state_dict(),
+                "optimizer": old.optimizer.state_dict(),
+                "neg_indices": old.neg_indices,
+                "step": old.step,
+                "epoch": 7}, path)
+    new = rec.create_state(1, 4, torch.device("cpu"))
+    assert ckpt_lib.restore_checkpoint(str(path), new) == 7
+    assert new.step == 5 and torch.equal(new.neg_indices, old.neg_indices)
+    for a, b in ((old.online, new.online), (old.ema, new.ema)):
+        for (name, t), u in zip(a.state_dict().items(),
+                                b.state_dict().values()):
+            assert torch.equal(t, u), name
+    written = ckpt_lib.save_checkpoint(str(tmp_path), "again", new, 7)
+    assert list(torch.load(written, weights_only=True)) == \
+        list(torch.load(path, weights_only=True))
