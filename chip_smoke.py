@@ -19,7 +19,8 @@ Phases, in order; any failure raises and exits non-zero:
                 shapes of the serving, training and evaluation paths (the
                 top-k on both its routes, each where plan() sends it and
                 at its edges, timed at Q = 1, 16, 64, 256 on the route
-                plan() takes). Two
+                plan() takes; and at the face width, 103,945 x 512, at
+                Q = 1 and 256, f32 and bf16). Two
                 times per kernel and shape: the card's (50 calls back to back
                 inside one pair of CUDA events while the host is ahead) and
                 the host's (perf_counter round one call, no synchronise);
@@ -43,6 +44,28 @@ Phases, in order; any failure raises and exits non-zero:
                 one request; the kernels' launch counters must show that
                 /search went through both routes of the top-k.
   5. parity  -- the same weights in f32 on the CPU against bf16 on the card.
+  4d. serve-face -- for VIT and VITs: a full-width FaceEncoder (dim 512,
+                depth 20, 8 heads x 64, mlp 2048, 112 px, bf16, seeded random
+                weights) built and served exactly as ``api.main --encoder
+                face`` wires them; /health (dim 512), /embed, /search on the
+                repo's images, then 22 searches of 1-4 queries and one of 256
+                over a 103,945 x 512 gallery: the launch counters must show
+                22 on the fma route and 1 on the mma route. The embed at
+                batch 64 (CUDA events, median of 10 after 3; FLOPs by
+                FlopCounterMode), and bf16 on the card against f32 on the CPU
+                on 8 images (cosine >= 0.99). Then ``python -m
+                hairci_torch.cli.face_retrieval`` once (its top-5 printed).
+  4e. faiss-native-demo -- phase 4's 103,945 x 768 gallery written as the
+                reference demo's FAISS pair (index_hair_region.index +
+                paths_hair_region.pkl) and imported; the hair CLI with
+                --faiss_index --retrieve_only launches the top-k once and
+                prints GalleryIndex.search's top-5; NativeFlatIndex (g++
+                into native/_build, a failed build raises) on the same rows
+                gives the card's top-5 at Q = 1 and 256 (scores within 1e-5),
+                each side's ms printed; DemoPipeline with the full-width
+                HairEncoder imports the artifact (a face encoder's width is
+                refused) and retrieves one image through the Otsu mask with
+                one top-k launch.
   6. train   -- ResNet-50 SHAM at 224, bf16, B=64, seeded random weights,
                 through ``hairci_torch.cli.mainpretrain.main`` for 3 epochs
                 of 2 steps (warmup, mine, mined) on the repo's 64 hair crops
@@ -106,8 +129,9 @@ Phases, in order; any failure raises and exits non-zero:
                 card and on the CPU from identical weights, views and draws;
                 then the same for ViT-B/16 with the S2R2 term, one SimCLR
                 step (ResNet-50) and one SupCon step (CIFAR-stem ResNet-18).
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The last three lines are the serving numbers of phases 4d and 4e as one
+JSON object, the kernels' JSON record and ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 
 With ``--kernel-times [DIR]`` it only times the bn_stats, Conv2d, top-k and
 rotate wrappers of the ``hairci_torch`` package under DIR (see
@@ -131,6 +155,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DATASET = os.path.join(REPO, "HairPretraining", "data", "hair_regions")
 GALLERY_ROWS = 103_945   # the kNN gallery size of the README's benchmark
 WIDTH = 768              # ViT-B/16 embedding width
+FACE_WIDTH = 512         # ViT_face / ViTs_face embedding width
 SEED = 0
 TRAIN_BATCH = 64         # the SHAM step's batch on one card (config: 256)
 SIZE = 224
@@ -375,14 +400,14 @@ TOPK_TIMED_Q = (1, 16, 64, 256)
 TOPK_SWEEP_Q = (1, 4, 8, 16, 32, 64, 256)
 
 
-def _topk_bound(Q: int, kind: str, route: str) -> tuple:
-    """The least time of a route's work at Q x 103,945 x 768: gallery and
-    queries read once, k = 5 scores and indices written; one f32 FMA per
+def _topk_bound(Q: int, kind: str, route: str, width: int = WIDTH) -> tuple:
+    """The least time of a route's work at Q x 103,945 x ``width``: gallery
+    and queries read once, k = 5 scores and indices written; one f32 FMA per
     product (fma), or three tensor-core products (mma: TF32 for an f32
     gallery, bf16 for a bf16 one)."""
-    nbytes = ((4 if kind == "f32" else 2) * GALLERY_ROWS * WIDTH
-              + 4 * Q * WIDTH + Q * 5 * 12)
-    flops = 2.0 * Q * GALLERY_ROWS * WIDTH
+    nbytes = ((4 if kind == "f32" else 2) * GALLERY_ROWS * width
+              + 4 * Q * width + Q * 5 * 12)
+    flops = 2.0 * Q * GALLERY_ROWS * width
     if route == "fma":
         return _bound(nbytes, flops, "f32")
     return _bound(nbytes, 3 * flops, "tf32" if kind == "f32" else "bf16")
@@ -484,8 +509,34 @@ def phase_topk() -> dict:
                   f"{bound[0]:.4f} ms by {bound[1]}), {host:.4f} ms on "
                   f"the host; twin {twin:.4f} ms")
     del g32, galleries
+
+    # the face encoder's width: 103,945 x 512, a single query (fma) and a
+    # batched /search (mma), each held against the twin and timed
+    g512 = unit(GALLERY_ROWS, FACE_WIDTH)
+    face = {"f32": (g512, 1e-5), "bf16": (g512.bfloat16(), 1e-4)}
+    face_err = {(r, name): 0.0 for r in ("fma", "mma") for name in face}
+    face_times = {}
+    for Q, route in ((1, "fma"), (256, "mma")):
+        q = near(g512, Q)
+        for name, (g, atol) in face.items():
+            for k in (1, 5, 8):
+                err, _ = _check_topk(q, g, k, atol, route=route)
+                face_err[(route, name)] = max(face_err[(route, name)], err)
+            twin = _median_ms(lambda: topk_gallery_search_reference(q, g, 5),
+                              runs=15)
+            kern, host = _kernel_times(lambda: topk_gallery_search(q, g, 5))
+            bound = _topk_bound(Q, name, route, FACE_WIDTH)
+            face_times[(Q, name)] = (kern, twin, host, bound, route)
+            print(f"topk Q={Q} N={GALLERY_ROWS} D={FACE_WIDTH} k=5 {name}, "
+                  f"{route} route: {kern:.4f} ms on the card "
+                  f"({100 * bound[0] / kern:.1f} % of its bound "
+                  f"{bound[0]:.4f} ms by {bound[1]}), {host:.4f} ms on the "
+                  f"host; twin {twin:.4f} ms; max |score err| "
+                  f"{face_err[(route, name)]:.3g}")
+    del g512, face
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, "times": times}
+    return {"max_abs_err": max_err, "times": times, "face_err": face_err,
+            "face_times": face_times}
 
 
 def resnet50_bn_shapes(rows: int, size: int) -> list:
@@ -1114,109 +1165,130 @@ def _write_big_gallery(index_dir: str, rows: int) -> list:
     return paths
 
 
-def phase_serve(workdir: str):
+def _serve_requests(server, index_dir: str, width: int, model: str) -> dict:
+    """/health, /search by image_path and by four base64 images, /embed on
+    the indexed images; then /reload of a 103,945-row gallery, 20 searches
+    by a stored embedding (each must find its own row) and one of 256 in one
+    request, which the mma route must answer. Returns the paths indexed,
+    the searches made, the /search p50 and the batched request's ms."""
     import numpy as np
     import torch
 
     from hairci_torch.ops.topk import topk_gallery_search
-    from hairci_torch.retrieval.encoders import HairEncoder
+
+    health = _request(server, "/health")
+    n_images = len(server.service.index)
+    if health != {"status": "ok", "gallery_size": n_images, "dim": width,
+                  "model": model} or n_images != 128:
+        raise AssertionError(f"/health: {health}")
+    paths = list(server.service.index.paths)
+    target = paths[2]
+    res = _request(server, "/search", {"image_path": target, "k": 5})
+    print(f"/search image_path {os.path.basename(target)}: "
+          f"{[os.path.basename(p) for p in res['paths'][0]]} "
+          f"{res['scores'][0]}")
+    if res["paths"][0][0] != target or res["scores"][0][0] < 0.99:
+        raise AssertionError("/search by image_path: rank 1 is not the "
+                             "image itself at score >= 0.99")
+    four = paths[10:14]
+    b64 = [base64.b64encode(open(p, "rb").read()).decode() for p in four]
+    res = _request(server, "/search", {"images_b64": b64, "k": 5})
+    top1 = [row[0] for row in res["paths"]]
+    print(f"/search images_b64 x4: rank-1 scores "
+          f"{[row[0] for row in res['scores']]}")
+    if top1 != four or np.asarray(res["scores"]).shape != (4, 5):
+        raise AssertionError(f"/search images_b64: rank 1 {top1}")
+    emb = np.asarray(_request(server, "/embed",
+                              {"image_path": paths[5]})["embedding"])
+    if emb.shape != (1, width) or abs(np.linalg.norm(emb) - 1) > 1e-4:
+        raise AssertionError(f"/embed: shape {emb.shape}")
+    searches = 2
+
+    real = _write_big_gallery(index_dir, GALLERY_ROWS)
+    t0 = time.perf_counter()
+    reloaded = _request(server, "/reload", {})["gallery_size"]
+    print(f"/reload: {reloaded} rows in {time.perf_counter() - t0:.2f} s")
+    if reloaded != GALLERY_ROWS:
+        raise AssertionError(f"/reload: {reloaded} rows")
+    stored = server.service.index.embeddings
+    latencies = []
+    for i in range(20):
+        q = stored[i].float().cpu().numpy().tolist()
+        t0 = time.perf_counter()
+        res = _request(server, "/search", {"embedding": q, "k": 5})
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        searches += 1
+        if res["paths"][0][0] != real[i]:
+            raise AssertionError(f"self-retrieval failed for row {i}")
+    latencies.sort()
+    print(f"/search by embedding, {GALLERY_ROWS} x {width}, k=5: p50 "
+          f"{latencies[10]:.3f} ms over 20 requests (HTTP round trip)")
+    # one batched search: 256 stored rows, each must find itself
+    rows = np.arange(256) * (GALLERY_ROWS // 256)
+    batch = stored[torch.from_numpy(rows).to(stored.device)]
+    payload = {"embedding": batch.float().cpu().numpy().tolist(), "k": 5}
+    before = topk_gallery_search.routes["mma"]
+    t0 = time.perf_counter()
+    res = _request(server, "/search", payload)
+    batched_ms = (time.perf_counter() - t0) * 1e3
+    searches += 1
+    top1 = [row[0] for row in res["paths"]]
+    index_paths = server.service.index.paths
+    if top1 != [index_paths[r] for r in rows] or np.asarray(
+            res["scores"]).shape != (256, 5):
+        raise AssertionError("batched /search: a rank 1 is not the "
+                             "query's own row")
+    if topk_gallery_search.routes["mma"] != before + 1:
+        raise AssertionError("batched /search did not take the mma "
+                             "route of the top-k kernel")
+    print(f"/search by embedding, 256 x {width} in one request, k=5: "
+          f"{batched_ms:.3f} ms HTTP round trip; rank 1 is each row "
+          f"itself; served by the mma route")
+    return {"paths": paths, "searches": searches, "p50_ms": latencies[10],
+            "batched_ms": batched_ms}
+
+
+def _serve_and_check(encoder, index_dir: str, width: int) -> dict:
+    """``serve`` over the repo's images with every kernel count at 0, the
+    requests of ``_serve_requests``, then the top-k's launches: one a
+    search, 22 on the fma route and 1 on the mma route."""
+    from hairci_torch.ops.topk import topk_gallery_search
     from hairci_torch.serve.api import serve
 
-    t0 = time.perf_counter()
-    encoder = HairEncoder(None, "vit_base_patch16", device="cuda")
-    print(f"HairEncoder vit_base_patch16 bf16 on cuda: "
-          f"{time.perf_counter() - t0:.2f} s to build")
-    index_dir = os.path.join(workdir, "index")
-
     _reset_counts()
-    searches = 0
     t0 = time.perf_counter()
     server = serve(encoder, index_dir, port=0, dataset_path=DATASET)
     print(f"serve(): indexed the dataset in {time.perf_counter() - t0:.2f} s")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
-        health = _request(server, "/health")
-        n_images = len(server.service.index)
-        if health != {"status": "ok", "gallery_size": n_images, "dim": WIDTH,
-                      "model": "HairEncoder"} or n_images != 128:
-            raise AssertionError(f"/health: {health}")
-        paths = list(server.service.index.paths)
-        target = paths[2]
-        res = _request(server, "/search", {"image_path": target, "k": 5})
-        searches += 1
-        print(f"/search image_path {os.path.basename(target)}: "
-              f"{[os.path.basename(p) for p in res['paths'][0]]} "
-              f"{res['scores'][0]}")
-        if res["paths"][0][0] != target or res["scores"][0][0] < 0.99:
-            raise AssertionError("/search by image_path: rank 1 is not the "
-                                 "image itself at score >= 0.99")
-        four = paths[10:14]
-        b64 = [base64.b64encode(open(p, "rb").read()).decode() for p in four]
-        res = _request(server, "/search", {"images_b64": b64, "k": 5})
-        searches += 1
-        top1 = [row[0] for row in res["paths"]]
-        print(f"/search images_b64 x4: rank-1 scores "
-              f"{[row[0] for row in res['scores']]}")
-        if top1 != four or np.asarray(res["scores"]).shape != (4, 5):
-            raise AssertionError(f"/search images_b64: rank 1 {top1}")
-        emb = np.asarray(_request(server, "/embed",
-                                  {"image_path": paths[5]})["embedding"])
-        if emb.shape != (1, WIDTH) or abs(np.linalg.norm(emb) - 1) > 1e-4:
-            raise AssertionError(f"/embed: shape {emb.shape}")
-
-        real = _write_big_gallery(index_dir, GALLERY_ROWS)
-        t0 = time.perf_counter()
-        reloaded = _request(server, "/reload", {})["gallery_size"]
-        print(f"/reload: {reloaded} rows in "
-              f"{time.perf_counter() - t0:.2f} s")
-        if reloaded != GALLERY_ROWS:
-            raise AssertionError(f"/reload: {reloaded} rows")
-        stored = server.service.index.embeddings
-        latencies = []
-        for i in range(20):
-            q = stored[i].float().cpu().numpy().tolist()
-            t0 = time.perf_counter()
-            res = _request(server, "/search", {"embedding": q, "k": 5})
-            latencies.append((time.perf_counter() - t0) * 1e3)
-            searches += 1
-            if res["paths"][0][0] != real[i]:
-                raise AssertionError(f"self-retrieval failed for row {i}")
-        latencies.sort()
-        print(f"/search by embedding, {GALLERY_ROWS} rows, k=5: p50 "
-              f"{latencies[10]:.3f} ms over 20 requests (HTTP round trip)")
-        # one batched search: 256 stored rows, each must find itself
-        rows = np.arange(256) * (GALLERY_ROWS // 256)
-        batch = stored[torch.from_numpy(rows).to(stored.device)]
-        payload = {"embedding": batch.float().cpu().numpy().tolist(), "k": 5}
-        before = topk_gallery_search.routes["mma"]
-        t0 = time.perf_counter()
-        res = _request(server, "/search", payload)
-        batched_ms = (time.perf_counter() - t0) * 1e3
-        searches += 1
-        top1 = [row[0] for row in res["paths"]]
-        index_paths = server.service.index.paths
-        if top1 != [index_paths[r] for r in rows] or np.asarray(
-                res["scores"]).shape != (256, 5):
-            raise AssertionError("batched /search: a rank 1 is not the "
-                                 "query's own row")
-        if topk_gallery_search.routes["mma"] != before + 1:
-            raise AssertionError("batched /search did not take the mma "
-                                 "route of the top-k kernel")
-        print(f"/search by embedding, 256 x {WIDTH} in one request, k=5: "
-              f"{batched_ms:.3f} ms HTTP round trip; rank 1 is each row "
-              f"itself; served by the mma route")
+        served = _serve_requests(server, index_dir, width,
+                                 type(encoder).__name__)
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
     launches = dict(topk_gallery_search.routes)
     print(f"topk kernel launches during the serve run: {launches} for "
-          f"{searches} searches")
-    if sum(launches.values()) != _counts()["topk_gallery_search"] or \
-            sum(launches.values()) < searches or min(launches.values()) < 1:
+          f"{served['searches']} searches")
+    if launches != {"fma": served["searches"] - 1, "mma": 1} or \
+            _counts()["topk_gallery_search"] != served["searches"]:
         raise AssertionError("/search did not go through both routes of the "
-                             "top-k kernel")
+                             "top-k kernel, one launch a search")
+    return {**served, "launches": launches}
+
+
+def phase_serve(workdir: str):
+    import torch
+
+    from hairci_torch.retrieval.encoders import HairEncoder
+
+    t0 = time.perf_counter()
+    encoder = HairEncoder(None, "vit_base_patch16", device="cuda")
+    print(f"HairEncoder vit_base_patch16 bf16 on cuda: "
+          f"{time.perf_counter() - t0:.2f} s to build")
+    served = _serve_and_check(encoder, os.path.join(workdir, "index"), WIDTH)
+    paths, launches = served["paths"], served["launches"]
 
     batch = encoder._preprocess(
         [paths[i % len(paths)] for i in range(64)])
@@ -1253,6 +1325,268 @@ def phase_parity(encoder, paths) -> None:
     print(f"bf16 cuda vs f32 cpu cosine: {cos.tolist()}")
     if not np.all(cos >= 0.99):
         raise AssertionError("card and CPU embeddings disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the face encoder behind the API, and the face-retrieval CLI
+# ---------------------------------------------------------------------------
+
+FACE_MODELS = ("VIT", "VITs")
+FACE_PARITY_IMAGES = 8
+
+
+def _face_embed_times(encoder, paths: list) -> dict:
+    """The face embed at batch 64: CUDA events, median of 10 after 3, and
+    the forward's FLOPs by ``FlopCounterMode``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    batch = encoder._preprocess([paths[i % len(paths)] for i in range(64)])
+    x = torch.from_numpy(batch).cuda()
+    with torch.no_grad():
+        ms = _median_ms(lambda: encoder._embed_fn(x), runs=10, warmup=3)
+        with FlopCounterMode(display=False) as counter:
+            encoder._embed_fn(x)
+    flops = counter.get_total_flops()
+    print(f"  face embed batch 64 at 112: {ms:.3f} ms ({64e3 / ms:.1f} "
+          f"img/s), {flops / 64 / 1e9:.2f} GFLOP an image, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return {"ms": ms, "img_s": 64e3 / ms, "flops": flops}
+
+
+def _face_parity(encoder, model_name: str, paths: list) -> float:
+    """The same seeded weights in f32 on the CPU against bf16 on the card;
+    returns the least cosine of ``FACE_PARITY_IMAGES`` images."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.retrieval.encoders import FaceEncoder
+
+    cpu = FaceEncoder(None, model_name, device="cpu", dtype=torch.float32)
+    images = encoder._preprocess(paths[:FACE_PARITY_IMAGES])
+    cos = np.sum(cpu.extract_features(images)
+                 * encoder.extract_features(images), axis=1)
+    print(f"  {model_name} bf16 cuda vs f32 cpu cosine: min {cos.min():.6f} "
+          f"over {len(cos)} images")
+    if not np.all(cos >= 0.99):
+        raise AssertionError(f"{model_name}: card and CPU embeddings "
+                             f"disagree: {cos.tolist()}")
+    return float(cos.min())
+
+
+def phase_serve_face(workdir: str) -> dict:
+    """``api.main --encoder face`` wiring for each face model: the API's own
+    parser and ``build_encoder``, then ``serve`` and the requests of phase 4
+    at the face width; the embed times and the card-vs-CPU cosine; then
+    ``python -m hairci_torch.cli.face_retrieval`` once. Returns the numbers
+    by model and the last model's encoder."""
+    import contextlib
+    import io
+    import runpy
+
+    from hairci_torch.serve import api
+
+    out = {}
+    for model_name in FACE_MODELS:
+        index_dir = os.path.join(workdir, f"face_{model_name}")
+        args = api.build_parser().parse_args(
+            ["--encoder", "face", "--model_name", model_name, "--index_dir",
+             index_dir, "--dataset_path", DATASET, "--port", "0"])
+        t0 = time.perf_counter()
+        encoder = api.build_encoder(args)
+        print(f"FaceEncoder {model_name} bf16 on {encoder.device}: "
+              f"{time.perf_counter() - t0:.2f} s to build")
+        if encoder.device.type != "cuda" or \
+                encoder.feature_dim != FACE_WIDTH:
+            raise AssertionError(f"FaceEncoder on {encoder.device}, "
+                                 f"width {encoder.feature_dim}")
+        served = _serve_and_check(encoder, args.index_dir, FACE_WIDTH)
+        paths = served["paths"]
+        out[model_name] = {
+            **served, "embed": _face_embed_times(encoder, paths),
+            "cos_min": _face_parity(encoder, model_name, paths)}
+
+    argv = sys.argv
+    sys.argv = ["face_retrieval", "--data_path", DATASET, "--embed_save_dir",
+                os.path.join(workdir, "face_cli"), "--query_image",
+                os.path.join(DATASET, "000003.jpg"), "--top_k", "5"]
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            runpy.run_module("hairci_torch.cli.face_retrieval",
+                             run_name="__main__")
+    finally:
+        sys.argv = argv
+    lines = printed.getvalue().strip().splitlines()
+    print("python -m hairci_torch.cli.face_retrieval: " + " | ".join(lines))
+    if len(lines) != 6 or not lines[1].split()[1].endswith("000003.jpg"):
+        raise AssertionError("face_retrieval: the query is not its own "
+                             "rank 1")
+    return out, encoder
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: a FAISS artifact through the hair CLI, the host flat index, and
+# the demo pipeline
+# ---------------------------------------------------------------------------
+
+HOST_SEARCH_Q = (1, 256)
+
+
+def _printed_top(text: str) -> list:
+    """[(path, score)] of the retrieval CLI's print."""
+    return [(line.split()[1], float(line.split()[3].rstrip(")")))
+            for line in text.strip().splitlines()[1:]]
+
+
+def _same_top(what: str, idx, scores, ref_idx, ref_scores) -> None:
+    """Equal indices, except where the reference's neighbouring scores lie
+    within 1e-5 (two sums in other orders may swap them); scores within
+    1e-5."""
+    import numpy as np
+
+    err = float(np.abs(scores - ref_scores).max())
+    if err > 1e-5:
+        raise AssertionError(f"{what}: scores differ by {err}")
+    inf = np.full_like(ref_scores[:, :1], np.inf)
+    gaps = ref_scores[:, :-1] - ref_scores[:, 1:]
+    clear = np.minimum(np.concatenate([inf, gaps], 1),
+                       np.concatenate([gaps, inf], 1)) > 1e-5
+    if not np.all((idx == ref_idx) | ~clear):
+        raise AssertionError(f"{what}: indices differ")
+
+
+def phase_faiss_native_demo(workdir: str, face_encoder) -> dict:
+    """Phase 4's 103,945 x 768 gallery written as the reference demo's FAISS
+    artifact pair; the hair CLI on it with ``--faiss_index --retrieve_only``
+    (one top-k launch, ``GalleryIndex.search``'s top-5); the same rows in
+    ``NativeFlatIndex`` against the card at Q = 1 and 256; ``DemoPipeline``
+    importing the artifact (a face encoder's width refused) and retrieving
+    one image through the Otsu mask with one top-k launch."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from hairci_torch.cli import retrieval as retrieval_cli
+    from hairci_torch.native import METRIC_IP, NativeFlatIndex
+    from hairci_torch.ops.topk import topk_gallery_search
+    from hairci_torch.retrieval.encoders import HairEncoder
+    from hairci_torch.retrieval.faiss_io import (
+        load_faiss_flat,
+        read_flat_index,
+        save_faiss_flat,
+    )
+    from hairci_torch.retrieval.index import GalleryIndex
+    from hairci_torch.serve.demo import FAISS_ARTIFACT, DemoPipeline
+
+    # phase 4's 103,945 x 768 gallery (the repo's images, then seeded rows)
+    gallery = GalleryIndex.load(os.path.join(workdir, "index"))
+    faiss_dir = os.path.join(workdir, "faiss")
+    os.makedirs(faiss_dir)
+    artifact = os.path.join(faiss_dir, FAISS_ARTIFACT)
+    t0 = time.perf_counter()
+    save_faiss_flat(gallery, artifact,
+                    os.path.join(faiss_dir, "paths_hair_region.pkl"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imported = load_faiss_flat(artifact)
+    import_s = time.perf_counter() - t0
+    print(f"FAISS artifact {GALLERY_ROWS} x {WIDTH}: written in {write_s:.3f}"
+          f" s, imported onto the card in {import_s:.3f} s "
+          f"({os.path.getsize(artifact) / 1e6:.1f} MB)")
+    # the importer normalises the rows again: within an f32 rounding
+    if imported.paths != gallery.paths or not torch.allclose(
+            imported.embeddings, gallery.embeddings, rtol=0, atol=1e-6):
+        raise AssertionError("the FAISS artifact did not import its rows")
+
+    query = os.path.join(DATASET, "000007_hair.png")
+    argv = ["--data_path", DATASET, "--faiss_index", artifact,
+            "--retrieve_only", "--query_image", query, "--top_k", "5",
+            "--embed_save_dir", os.path.join(workdir, "unused")]
+    _reset_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        retrieval_cli.run("hair", argv)
+    cli_s = time.perf_counter() - t0
+    launches = _counts()["topk_gallery_search"]
+    top = _printed_top(printed.getvalue())
+    print(f"retrieval --faiss_index --retrieve_only: {cli_s:.2f} s, "
+          f"{launches} top-k launch; top-5 "
+          f"{[(os.path.basename(p), s) for p, s in top]}")
+    if launches != 1:
+        raise AssertionError(f"--faiss_index search: {launches} top-k "
+                             "launches, not 1")
+    encoder = HairEncoder(None, "vit_base_patch16", device="cuda")
+    feat = encoder.encode_single_image(query)
+    ref_s, ref_paths = imported.search_paths(feat[None], 5)
+    if [p for p, _ in top] != ref_paths[0] or top[0][0] != query or \
+            np.abs(np.array([s for _, s in top]) - ref_s[0]).max() > 1e-4:
+        raise AssertionError("--faiss_index top-5 differs from "
+                             "GalleryIndex.search on the same rows")
+
+    vectors, _ = read_flat_index(artifact)
+    host = NativeFlatIndex(WIDTH, METRIC_IP)
+    t0 = time.perf_counter()
+    host.add(vectors)
+    print(f"NativeFlatIndex: {len(host)} rows added in "
+          f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(SEED)
+    times = {}
+    for Q in HOST_SEARCH_Q:
+        q = vectors[rng.integers(0, GALLERY_ROWS, Q)] + 0.3 * \
+            rng.standard_normal((Q, WIDTH)).astype(np.float32) / WIDTH ** 0.5
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        runs = 5 if Q == 1 else 2
+        host_ms = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            hs, hi = host.search(q, 5)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        card_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            cs, ci = imported.search(q, 5, normalized=True)
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+        _same_top(f"NativeFlatIndex vs the card at Q={Q}", hi, hs, ci, cs)
+        times[Q] = (sorted(host_ms)[runs // 2], sorted(card_ms)[5])
+        print(f"flat search Q={Q} k=5 over {GALLERY_ROWS} x {WIDTH}: host "
+              f"(NativeFlatIndex, {os.cpu_count()} cores) {times[Q][0]:.3f} "
+              f"ms, card (GalleryIndex.search, copies included) "
+              f"{times[Q][1]:.3f} ms; same top-5")
+
+    # the demo over the artifact's directory, which holds no embeddings.npy
+    pipe = DemoPipeline(encoder, faiss_dir)
+    if len(pipe.build_index(DATASET)) != GALLERY_ROWS:
+        raise AssertionError("the demo did not import the FAISS artifact")
+    try:
+        DemoPipeline(face_encoder, faiss_dir).build_index(DATASET)
+    except ValueError as e:
+        print(f"DemoPipeline with the face encoder refuses the artifact: "
+              f"{str(e).split('. ')[0]}")
+    else:
+        raise AssertionError("the demo took a 768-wide gallery for a "
+                             "512-wide encoder")
+    from PIL import Image
+
+    with Image.open(os.path.join(DATASET, "000011.jpg")) as im:
+        image = np.asarray(im.convert("RGB"))
+    _reset_counts()
+    t0 = time.perf_counter()
+    shown, scores, found = pipe.retrieve(image, k=5)
+    demo_s = time.perf_counter() - t0
+    launches_demo = _counts()["topk_gallery_search"]
+    print(f"DemoPipeline.retrieve (Otsu mask, facer absent): {demo_s:.3f} s, "
+          f"{launches_demo} top-k launch; "
+          f"{[(os.path.basename(p), round(s, 4)) for p, s in zip(found, scores)]}")
+    if launches_demo != 1 or len(shown) != 5 or \
+            shown[0].shape[-1] != 3:
+        raise AssertionError("the demo's retrieval")
+    return {"write_s": write_s, "import_s": import_s, "cli_s": cli_s,
+            "host_times": times, "demo_s": demo_s, "launches_cli": launches,
+            "launches_demo": launches_demo}
 
 
 # ---------------------------------------------------------------------------
@@ -2312,6 +2646,9 @@ def main() -> int:
         encoder, paths, launches = phase_serve(workdir)
         phase_parity(encoder, paths)
         del encoder
+        face, face_encoder = phase_serve_face(workdir)
+        faiss = phase_faiss_native_demo(workdir, face_encoder)
+        del face_encoder
         train = phase_train(workdir, kern)
         knn = phase_knn(workdir, train)
         train_vit = phase_train_vit(workdir, train)
@@ -2347,23 +2684,50 @@ def main() -> int:
     # four evaluations of each one's checkpoint (phase 7f); bn_stats'
     # supcon_* numbers are the 20 BN inputs of one SupCon forward summed,
     # conv3x3's *_224 numbers the CIFAR-stem ResNet-18's layer1 conv at the
-    # kNN CLI's batch, (48, 224, 224, 64) bf16.
+    # kNN CLI's batch, (48, 224, 224, 64) bf16. The top-k's *_d512 numbers
+    # are the same at the face encoder's width, 103,945 x 512 f32 (phase 3),
+    # launches_face its route's launches in each face model's serve run
+    # (phase 4d), launches_faiss the --faiss_index search's and the demo's
+    # retrieval's (phase 4e; both single queries, the fma route).
     topk_rows = []
     for name, route, Q in (("topk_gallery_search", "fma", 1),
                            ("topk_gallery_search_batched", "mma", 256)):
         kern_ms, plain_ms, host_ms, bound, took = topk["times"][(Q, "f32")]
         if took != route:
             raise AssertionError(f"topk at Q={Q} took the {took} route")
+        d512 = topk["face_times"][(Q, "f32")]
         topk_rows.append(
             {"name": name, "route": "cuda",
              "source": "hairci_torch/ops/csrc/topk.cu",
              "replaces": "hairci/ops/topk_pallas.py:43",
              "launches": launches[route],
              "launches_vit": vit["topk_gallery_search"],
+             "launches_face": {m: face[m]["launches"][route]
+                               for m in FACE_MODELS},
+             "launches_faiss": (faiss["launches_cli"]
+                                + faiss["launches_demo"]
+                                if route == "fma" else 0),
              "max_abs_err": topk["max_abs_err"][(route, "f32")],
              "ms": kern_ms, "host_ms": host_ms, "plain_ms": plain_ms,
              "bound_ms": bound[0], "bound_by": bound[1],
-             "library_ms": None})
+             "library_ms": None,
+             "max_abs_err_d512": topk["face_err"][(route, "f32")],
+             "ms_d512": d512[0], "host_ms_d512": d512[2],
+             "plain_ms_d512": d512[1], "bound_ms_d512": d512[3][0],
+             "bound_by_d512": d512[3][1]})
+    # the serving numbers of phases 4d and 4e, as printed there, in one
+    # line near the end of the output
+    print(json.dumps({"serving": {
+        "face": {m: {"embed_ms": face[m]["embed"]["ms"],
+                     "embed_img_s": face[m]["embed"]["img_s"],
+                     "gflop_per_image": face[m]["embed"]["flops"] / 64e9,
+                     "search_p50_ms": face[m]["p50_ms"],
+                     "search_256_ms": face[m]["batched_ms"],
+                     "cos_min": face[m]["cos_min"]} for m in FACE_MODELS},
+        "faiss": {"write_s": faiss["write_s"], "import_s": faiss["import_s"],
+                  "cli_s": faiss["cli_s"], "demo_s": faiss["demo_s"]},
+        "flat_search_ms": {f"Q={q}": {"host": h, "card": c}
+                           for q, (h, c) in faiss["host_times"].items()}}}))
     print(json.dumps({"kernels": topk_rows + [
         {"name": "rotate_shear", "route": "cuda",
          "source": "hairci_torch/ops/csrc/rotate.cu",

@@ -5,22 +5,28 @@ reference each module is tested against. This package imports ``torch`` and
 never ``jax``, and nothing of ``hairci``: ``data/`` and ``native/`` are its
 own copies of the JAX-free loader and the C++ batch decoder.
 
-Ported so far: hair-retrieval serving, SHAM training (ResNets and ViT-B/16,
-with S2R2), and kNN evaluation.
+Ported so far: hair- and face-retrieval serving (the CLIs, the HTTP API,
+FAISS flat-index import, the host flat index, the demo, the visualizer),
+offline preprocessing, SHAM training (ResNets and ViT-B/16, with S2R2),
+SimCLR and SupCon, and evaluation.
   aug/        SimCLR/SHAM ops and pipelines, knn and test transforms
   data/       CSV manifests, the threaded loader (C++ decoder or PIL) and
               GrainLoader
-  eval/       l2_normalize, extract_features, kNN, the report, Classifier
-  losses/     NT-Xent, triplet, margin statistics, S2R2 (Smooth-AP)
-  models/     ViT (eval and training forward), ResNets, BatchNorm, heads,
-              converters
-  native/     the C++ batch image decoder (g++ at first use)
+  eval/       l2_normalize, extract_features, kNN, the linear probe, the 2-D
+              projection, the variance, the report, Classifier
+  losses/     NT-Xent, triplet, margin statistics, S2R2 (Smooth-AP), SupCon
+  models/     ViT (eval and training forward), the face ViT and its margin
+              heads, ResNets, BatchNorm, heads, converters
+  native/     the C++ batch image decoder and the host flat index (g++ at
+              first use)
   ops/        hand-written CUDA kernels (csrc/) with plain twins
-  retrieval/  GalleryIndex, HairEncoder
-  ssl/        recipe registry, SHAMRecipe
+  preprocess/ hair-region extraction (facer, or the Otsu threshold) and the
+              folder splitter
+  retrieval/  GalleryIndex, HairEncoder, FaceEncoder, FAISS flat-index files
+  ssl/        recipe registry, SHAM, SimCLR, SupCon
   train/      TrainState, optimizer, Trainer, checkpoints
-  cli/        retrieval, mainpretrain, knn_classification
-  serve/      python -m hairci_torch.serve.api
+  cli/        retrieval, face_retrieval, mainpretrain, knn_classification
+  serve/      the HTTP API, the demo and the result visualizer
   utils/      device resolution, flags and YAML
 """
 

@@ -1,2 +1,2 @@
-"""Command-line entry points (port of hairci.cli): ``retrieval``,
-``mainpretrain`` (SHAM) and ``knn_classification`` (SHAM, kNN)."""
+"""Command-line entry points (port of hairci.cli): ``retrieval`` and
+``face_retrieval``, ``mainpretrain`` and ``knn_classification``."""

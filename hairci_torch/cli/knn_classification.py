@@ -24,10 +24,10 @@ ported". ``--device`` defaults to cuda and raises without a card;
 resnet50 or vit_b_16. ``--checkpoint_path`` takes a checkpoint of the
 port's Trainer (the file, its run directory or its ``checkpoints/`` folder,
 resolved to the newest), or a reference-trained ``.pth``/``.pt``: SHAM or
-SimCLR on a ResNet, or SupCon. A reference ``.pth`` on a ViT exits: SHAM's
-layout is known for ResNets only (the JAX package's ``convert_sham2`` reads
-ResNets only), and SimCLR's ViT is torchvision's, which the port's ViT does
-not read.
+SimCLR on a ResNet, SimCLR on ``vit_b_16`` (a torchvision-layout ViT, read
+by ``models.convert.torchvision_vit_state_dict``), or SupCon. A reference
+``.pth`` of SHAM on a ViT exits: that layout is known for ResNets only (the
+JAX package's ``convert_sham2`` reads ResNets only).
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from hairci_torch.models.convert import (
     load_torch_state_dict,
     sham2_state_dict,
     supcon_state_dict,
+    torchvision_vit_state_dict,
 )
 from hairci_torch.ssl import build_recipe
 from hairci_torch.train import checkpoint as ckpt_lib
@@ -99,10 +100,12 @@ def recipe_for_eval(args):
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
 
 
-def _reference_state_dict(args, path: str):
-    """A reference-trained ``.pth`` in the port's key layout."""
+def _reference_state_dict(args, path: str, model):
+    """A reference-trained ``.pth`` in the key layout of ``model`` (the
+    recipe's online module)."""
+    sd = load_torch_state_dict(path)
     if args.mode == "simclr_supcon":
-        return supcon_state_dict(load_torch_state_dict(path))
+        return supcon_state_dict(sd)
     if args.model.startswith("vit"):
         if args.mode == "SHAM":
             raise SystemExit(
@@ -110,12 +113,20 @@ def _reference_state_dict(args, path: str):
                 "reference layout is known for ResNet backbones only (as in "
                 "hairci's convert_sham2); evaluate a checkpoint of this "
                 "package's Trainer instead")
-        raise SystemExit(
-            "a reference .pth of SimCLR on vit_b_16 holds a torchvision "
-            "ViT, whose layout this package's ViT does not read; evaluate a "
-            "checkpoint of this package's Trainer instead")
+        # SimCLR's ViTWrapper: backbone.{conv_proj, class_token, encoder.*}
+        backbone = {k[len("backbone."):]: v for k, v in sd.items()
+                    if k.startswith("backbone.")}
+        try:
+            vit = torchvision_vit_state_dict(backbone, model.backbone)
+        except KeyError as e:
+            raise SystemExit(
+                f"{path}: not a reference SimCLR .pth on a torchvision ViT "
+                f"(missing {e})") from e
+        # + projection_head.layers.*, which sham2_state_dict keeps
+        return {**{f"backbone.{k}": v for k, v in vit.items()},
+                **sham2_state_dict(sd)}
     # SHAM and SimCLR: backbone.{0,1,4-7} + projection_head.layers.*
-    return sham2_state_dict(load_torch_state_dict(path))
+    return sham2_state_dict(sd)
 
 
 def load_state(recipe, args, device: torch.device):
@@ -123,7 +134,7 @@ def load_state(recipe, args, device: torch.device):
     state = recipe.create_state(args.seed, min(args.batch_size, 8), device)
     path = args.checkpoint_path
     if path and path.endswith((".pth", ".pt")):
-        sd = _reference_state_dict(args, path)
+        sd = _reference_state_dict(args, path, state.online)
         state.online.load_state_dict(sd)
         if state.ema is not None:
             state.ema.load_state_dict(sd)

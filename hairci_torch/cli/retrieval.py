@@ -1,10 +1,12 @@
-"""Hair-retrieval CLI (port of ``hairci/cli/retrieval.py``), same flags:
-extract-or-load embeddings -> single-query retrieval or visualization grids.
+"""Hair- and face-retrieval CLIs (port of ``hairci/cli/retrieval.py``), same
+flags: extract-or-load embeddings, or import a FAISS flat index the reference
+persisted (``--faiss_index``), then single-query retrieval or visualization
+grids.
 
     python -m hairci_torch.cli.retrieval --data_path DIR [--device cuda|cpu]
+    python -m hairci_torch.cli.face_retrieval --data_path DIR [--model_name VITs]
 
-``--device`` defaults to cuda and raises without a card. The face encoder and
-``--faiss_index`` are not ported yet and raise.
+``--device`` defaults to cuda and raises without a card.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ def build_retrieval_parser(kind: str) -> argparse.ArgumentParser:
     p.add_argument("--force_extract", action="store_true")
     p.add_argument("--faiss_index", type=str, default=None,
                    help="import a reference-built FAISS flat index "
-                        "(not yet ported)")
+                        "(+ its paths .pkl, discovered by the reference's "
+                        "naming) as the gallery instead of extracting")
     return p
 
 
@@ -82,18 +85,25 @@ def _visualize(index, encoder, args) -> None:
 def run(kind: str, argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     args = build_retrieval_parser(kind).parse_args(argv)
-    if kind != "hair":
-        raise NotImplementedError(f"the {kind} encoder is not yet ported")
-    if args.faiss_index:
-        raise NotImplementedError("--faiss_index is not yet ported")
 
-    from hairci_torch.retrieval.encoders import HairEncoder
+    from hairci_torch.retrieval.encoders import FaceEncoder, HairEncoder
 
-    encoder = HairEncoder(args.ckpt_path, args.model_name, device=args.device,
+    encoder_cls = HairEncoder if kind == "hair" else FaceEncoder
+    encoder = encoder_cls(args.ckpt_path, args.model_name, device=args.device,
                           batch_size=args.batch_size)
     should_extract = not args.retrieve_only and (
         args.force_extract or not encoder.embeddings_exist(args.embed_save_dir))
-    if should_extract:
+    if args.faiss_index and (args.force_extract or args.extract_only):
+        raise SystemExit(
+            "--faiss_index loads a prebuilt gallery and skips extraction; "
+            "it cannot be combined with --force_extract/--extract_only")
+    if args.faiss_index:
+        # the reference demo's artifacts load as the gallery
+        # (app/inference.py:96-98; see retrieval/faiss_io.py)
+        from hairci_torch.retrieval.faiss_io import load_faiss_flat
+
+        index = load_faiss_flat(args.faiss_index, device=encoder.device)
+    elif should_extract:
         index = encoder.extract_dataset_features(args.data_path,
                                                  args.embed_save_dir)
     elif not args.extract_only:

@@ -19,6 +19,12 @@ renames a reference-trained ResNet SHAM or SimCLR ``.pth`` in that
 ``nn.Sequential`` layout. ``supcon_state_dict_from_jax`` maps a JAX
 ``SupConModule`` and ``supcon_state_dict`` a reference ``SupConResNet``
 ``.pth`` (``convert_supcon``) onto the port's ``SupConModule``.
+
+``torchvision_vit_state_dict`` reads a torchvision-layout ViT (the backbone
+of the reference's SimCLR on ``vit_b_16``) as ``convert_torchvision_vit``
+does. ``face_vit_state_dict_from_jax`` maps a JAX ``ViTFace`` and
+``face_vit_state_dict`` a reference ``ViT_face`` / ``ViTs_face`` ``.pth``
+(``convert_vit_face``) onto the port's ``ViTFace``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from hairci_torch.models import resnet
+from hairci_torch.models.face_vit import ViTFace
 from hairci_torch.models.vit import VisionTransformer
 
 
@@ -252,4 +259,119 @@ def timm_vit_state_dict(sd: Mapping[str, torch.Tensor],
     for n in ("norm", "fc_norm") if model.global_pool else ("norm",):
         out[f"{n}.weight"] = sd.get(f"{n}.weight", torch.ones(d))
         out[f"{n}.bias"] = sd.get(f"{n}.bias", torch.zeros(d))
+    return out
+
+
+def torchvision_vit_state_dict(sd: Mapping[str, torch.Tensor],
+                               model: VisionTransformer
+                               ) -> Dict[str, torch.Tensor]:
+    """A torchvision-layout ViT state dict (``class_token`` or
+    ``cls_token``, ``encoder.pos_embedding``, ``conv_proj``,
+    ``encoder.layers.encoder_layer_{i}.{ln_1, ln_2,
+    self_attention.in_proj_*, self_attention.out_proj, mlp.{0,3} or
+    mlp.linear_{1,2}}``, ``encoder.ln``) -> ``model``'s key set, as
+    ``hairci/retrieval/torch_import.py:convert_torchvision_vit`` reads it:
+    ``nn.MultiheadAttention`` packs its [q|k|v] rows as timm's qkv does; a
+    missing mask token becomes zeros and ``fc_norm`` the identity, as the
+    JAX package's merge over its init leaves them. Raises ``KeyError`` where
+    a tensor of the layout is missing."""
+    if "conv_proj.weight" not in sd:
+        raise KeyError("conv_proj.weight: not a torchvision ViT state dict")
+    d = model.embed_dim
+    out = {
+        "cls_token": sd.get("class_token", sd.get("cls_token")
+                            ).reshape(1, 1, d),
+        "pos_embed": sd.get("encoder.pos_embedding", sd.get("pos_embedding")),
+        "mask_token": sd.get("mask_token", torch.zeros(1, 1, d)
+                             ).reshape(1, 1, d),
+        "patch_embed.proj.weight": sd["conv_proj.weight"],
+        "patch_embed.proj.bias": sd["conv_proj.bias"],
+    }
+    for i in range(model.depth):
+        t = f"encoder.layers.encoder_layer_{i}"
+        fc1 = f"{t}.mlp.0" if f"{t}.mlp.0.weight" in sd else f"{t}.mlp.linear_1"
+        fc2 = f"{t}.mlp.3" if f"{t}.mlp.3.weight" in sd else f"{t}.mlp.linear_2"
+        for ours, theirs in (
+                ("norm1", f"{t}.ln_1"), ("norm2", f"{t}.ln_2"),
+                ("attn.proj", f"{t}.self_attention.out_proj"),
+                ("mlp.fc1", fc1), ("mlp.fc2", fc2)):
+            for p in ("weight", "bias"):
+                out[f"blocks.{i}.{ours}.{p}"] = sd[f"{theirs}.{p}"]
+        for p in ("weight", "bias"):
+            out[f"blocks.{i}.attn.qkv.{p}"] = sd[
+                f"{t}.self_attention.in_proj_{p}"]
+    out["norm.weight"] = sd["encoder.ln.weight"]
+    out["norm.bias"] = sd["encoder.ln.bias"]
+    if model.global_pool:
+        out["fc_norm.weight"] = torch.ones(d)
+        out["fc_norm.bias"] = torch.zeros(d)
+    return out
+
+
+def face_vit_state_dict_from_jax(params: Mapping, depth: int
+                                 ) -> Dict[str, torch.Tensor]:
+    """JAX ``ViTFace`` params -> the port's ``ViTFace`` state dict (load
+    with ``strict=True``): Dense kernels transposed, the classifier weight
+    (and the Softmax head's bias) as they are."""
+    def dense(name: str, p: Mapping, bias: bool = True) -> None:
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+        if bias:
+            sd[f"{name}.bias"] = _t(p["bias"])
+
+    def norm(name: str, p: Mapping) -> None:
+        sd[f"{name}.weight"] = _t(p["scale"])
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+    sd: Dict[str, torch.Tensor] = {"cls_token": _t(params["cls_token"]),
+                                   "pos_embedding": _t(params["pos_embedding"]),
+                                   "loss_weight": _t(params["loss_weight"])}
+    if "loss_bias" in params:
+        sd["loss_bias"] = _t(params["loss_bias"])
+    dense("patch_to_embedding", params["patch_to_embedding"])
+    norm("mlp_head", params["mlp_head"])
+    for i in range(depth):
+        attn, ff = params[f"_PreNormAttention_{i}"], params[f"_PreNormFF_{i}"]
+        t = f"blocks.{i}"
+        norm(f"{t}.attn.norm", attn["LayerNorm_0"])
+        dense(f"{t}.attn.to_qkv", attn["Dense_0"], bias=False)
+        dense(f"{t}.attn.to_out", attn["Dense_1"])
+        norm(f"{t}.ff.norm", ff["LayerNorm_0"])
+        dense(f"{t}.ff.fc1", ff["Dense_0"])
+        dense(f"{t}.ff.fc2", ff["Dense_1"])
+    return sd
+
+
+def face_vit_state_dict(sd: Mapping[str, torch.Tensor], model: ViTFace
+                        ) -> Dict[str, torch.Tensor]:
+    """A reference ``ViT_face`` / ``ViTs_face`` state dict -> ``model``'s key
+    set, as ``hairci/retrieval/torch_import.py:convert_vit_face`` reads it:
+    ``transformer.layers.{i}.0.fn`` is the attention (``norm``,
+    ``fn.to_qkv``, ``fn.to_out.0``), ``transformer.layers.{i}.1.fn`` the
+    feed-forward (``norm``, ``fn.net.0``, ``fn.net.3``), ``mlp_head.0`` the
+    final LayerNorm, ``loss.weight`` (``loss.bias``) the margin head. Where
+    the file holds no margin head, ``model``'s own stays (the JAX package
+    merges over its init the same way). Raises ``KeyError`` where a tensor
+    of the trunk is missing."""
+    own = model.state_dict()
+    out = {"cls_token": sd["cls_token"],
+           "pos_embedding": sd["pos_embedding"],
+           "mlp_head.weight": sd["mlp_head.0.weight"],
+           "mlp_head.bias": sd["mlp_head.0.bias"]}
+    pairs = [("patch_to_embedding", "patch_to_embedding")]
+    for i in range(model.depth):
+        attn, ff = f"transformer.layers.{i}.0.fn", f"transformer.layers.{i}.1.fn"
+        t = f"blocks.{i}"
+        pairs += [(f"{t}.attn.norm", f"{attn}.norm"),
+                  (f"{t}.attn.to_out", f"{attn}.fn.to_out.0"),
+                  (f"{t}.ff.norm", f"{ff}.norm"),
+                  (f"{t}.ff.fc1", f"{ff}.fn.net.0"),
+                  (f"{t}.ff.fc2", f"{ff}.fn.net.3")]
+        out[f"{t}.attn.to_qkv.weight"] = sd[f"{attn}.fn.to_qkv.weight"]
+    for ours, theirs in pairs:
+        for p in ("weight", "bias"):
+            out[f"{ours}.{p}"] = sd[f"{theirs}.{p}"]
+    for ours, theirs in (("loss_weight", "loss.weight"),
+                         ("loss_bias", "loss.bias")):
+        if ours in own:
+            out[ours] = sd.get(theirs, own[ours])
     return out

@@ -17,22 +17,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import logging
 import os
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from hairci_torch.native import _gxx
+
 log = logging.getLogger(__name__)
 
 SRC = Path(__file__).resolve().parent / "imageio.cpp"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-             "-pthread")
+BUILD_DIR = _gxx.BUILD_DIR
 LIBS = ("-ljpeg", "-lpng")
 
 MODE_RAW_RESIZE = 0
@@ -40,33 +37,13 @@ MODE_CENTER_CROP = 1
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(
-        GXX_FLAGS + LIBS).encode()).hexdigest()
-    return BUILD_DIR / f"libimageio-{digest[:16]}.so"
+    return _gxx.library_path(SRC, "libimageio", LIBS)
 
 
 def build() -> Path:
     """Compile ``imageio.cpp`` anew; raises RuntimeError with the compiler's
     message when it fails."""
-    out = library_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ["g++", *GXX_FLAGS, str(SRC), *LIBS, "-o", tmp]
-    log.info("building native imageio: %s", " ".join(cmd))
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed for imageio.cpp:\n{proc.stderr}")
-        os.replace(tmp, out)
-    except OSError as e:    # no g++ at all
-        raise RuntimeError(f"g++ could not run: {e}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return _gxx.build(SRC, "libimageio", LIBS)
 
 
 @functools.lru_cache(maxsize=None)

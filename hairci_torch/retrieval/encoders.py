@@ -2,13 +2,16 @@
 
 HairEncoder: ViT-B/16 trunk at 224 in bf16 (host Resize224 + CenterCrop224,
 device ImageNet normalize); the feature is the final-normed CLS token,
-L2-normalised. API: ``extract_dataset_features`` (folder -> embeddings.npy +
-image_paths.txt), ``encode_single_image``, ``retrieve_similar_images``.
+L2-normalised. FaceEncoder: ``ViT_face`` (``VIT``) or ``ViTs_face``
+(``VITs``) at 112 in bf16, the same host and device steps; the feature is
+the model's LayerNorm-ed embedding, L2-normalised. API of both:
+``extract_dataset_features`` (folder -> embeddings.npy + image_paths.txt),
+``encode_single_image``, ``retrieve_similar_images``, ``feature_dim``.
 
-Checkpoints load from ``.pth``/``.pt`` (timm-layout ViT keys at the top level
-or under a common prefix). An Orbax checkpoint needs JAX: convert it with
+Checkpoints load from ``.pth``/``.pt``: for HairEncoder timm-layout ViT keys
+at the top level or under a common prefix, for FaceEncoder the reference's
+``ViT_face`` layout. An Orbax checkpoint needs JAX: convert it with
 ``hairci.retrieval.torch_import.export_vit`` + ``save_torch_state_dict``.
-``FaceEncoder`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,8 +26,12 @@ import torch
 from hairci_torch.aug import ops
 from hairci_torch.data.loader import decode_image
 from hairci_torch.eval.features import l2_normalize
-from hairci_torch.models.convert import load_torch_state_dict, \
-    timm_vit_state_dict
+from hairci_torch.models.convert import (
+    face_vit_state_dict,
+    load_torch_state_dict,
+    timm_vit_state_dict,
+)
+from hairci_torch.models.face_vit import build_vit_face
 from hairci_torch.models.vit import build_vit
 from hairci_torch.retrieval.index import GalleryIndex
 from hairci_torch.utils.device import DeviceLike, resolve_device
@@ -61,6 +68,12 @@ class _EncoderBase:
             log.warning("checkpoint %s not found; using random init",
                         ckpt_path)
         self.model = self.model.to(self.device).eval()
+
+    @property
+    def feature_dim(self) -> int:
+        """Output embedding width (checked against imported galleries)."""
+        m = self.model
+        return int(getattr(m, "embed_dim", None) or getattr(m, "dim"))
 
     def _embed_fn(self, images: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -159,3 +172,26 @@ class HairEncoder(_EncoderBase):
                 log.info("loaded torch ViT weights (prefix=%r)", prefix)
                 return
         raise ValueError(f"{path}: no recognizable ViT layout")
+
+
+class FaceEncoder(_EncoderBase):
+    img_size = 112
+
+    def __init__(self, ckpt_path: Optional[str] = None,
+                 model_name: str = "VIT", device: DeviceLike = None,
+                 batch_size: int = 64, dtype: torch.dtype = torch.bfloat16):
+        """``model_name``: ``VIT`` or ``VITs``. Random weights come from
+        ``torch.Generator().manual_seed(0)``, as HairEncoder's."""
+        self.model = build_vit_face(
+            model_name, dtype=dtype,
+            generator=torch.Generator().manual_seed(0))
+        super().__init__(ckpt_path, batch_size, device)
+
+    def _embed_fn(self, images: torch.Tensor) -> torch.Tensor:
+        return self.model(ops.normalize(ops.to_float(images)))
+
+    def _load_torch(self, path: str) -> None:
+        self.model.load_state_dict(
+            face_vit_state_dict(load_torch_state_dict(path), self.model),
+            strict=True)
+        log.info("loaded torch ViT_face weights from %s", path)

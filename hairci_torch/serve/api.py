@@ -8,10 +8,13 @@ and JSON over the port's encoder and gallery index.
                           -> {paths, scores}
   POST /reload            re-load the gallery index from disk
 
-Searches run through GalleryIndex (the CUDA top-k kernel for k <= 8 on a
-card, chunked matmul otherwise).
+The encoder is the hair encoder (ViT-B/16 at 224) or, with ``--encoder
+face``, the face encoder (``--model_name VIT``, the default, or ``VITs``; at
+112). Searches run through GalleryIndex (the CUDA top-k kernel for k <= 8 on
+a card, chunked matmul otherwise).
 
-    python -m hairci_torch.serve.api --index_dir DIR [--dataset_path DIR]
+    python -m hairci_torch.serve.api --index_dir DIR [--dataset_path DIR] \
+        [--encoder hair|face] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -186,12 +189,13 @@ def serve(encoder, index_dir: str, port: int = 8100,
     return server
 
 
-def main(argv=None) -> None:
-    logging.basicConfig(level=logging.INFO)
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="hairci retrieval serving API")
     p.add_argument("--encoder", default="hair", choices=["hair", "face"])
     p.add_argument("--checkpoint_path", default=None)
-    p.add_argument("--model_name", default=None)
+    p.add_argument("--model_name", default=None,
+                   help="hair: vit_base_patch16 (default); face: VIT "
+                        "(default) or VITs")
     p.add_argument("--index_dir", required=True)
     p.add_argument("--dataset_path", default=None,
                    help="build the index from this folder when missing")
@@ -199,17 +203,27 @@ def main(argv=None) -> None:
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; no silent CPU path)")
-    args = p.parse_args(argv)
-    if args.encoder != "hair":
-        raise NotImplementedError(f"the {args.encoder} encoder is not yet "
-                                  "ported")
+    return p
 
-    from hairci_torch.retrieval.encoders import HairEncoder
 
-    enc = HairEncoder(args.checkpoint_path,
-                      model_name=args.model_name or "vit_base_patch16",
-                      device=args.device, batch_size=args.batch_size)
-    server = serve(enc, args.index_dir, args.port, args.dataset_path)
+def build_encoder(args: argparse.Namespace):
+    """The encoder ``main`` serves, from its parsed flags."""
+    from hairci_torch.retrieval.encoders import FaceEncoder, HairEncoder
+
+    if args.encoder == "hair":
+        return HairEncoder(args.checkpoint_path,
+                           model_name=args.model_name or "vit_base_patch16",
+                           device=args.device, batch_size=args.batch_size)
+    return FaceEncoder(args.checkpoint_path,
+                       model_name=args.model_name or "VIT",
+                       device=args.device, batch_size=args.batch_size)
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    args = build_parser().parse_args(argv)
+    server = serve(build_encoder(args), args.index_dir, args.port,
+                   args.dataset_path)
     log.info("retrieval API on :%d", args.port)
     server.serve_forever()
 

@@ -191,7 +191,8 @@ def test_cli_refuses_what_is_not_ported(slice_, tmp_path):
     # a reference .pth of SHAM on a ViT: no converter in either package
     with pytest.raises(SystemExit, match="ResNet backbones only"):
         cli.main(swap("--model", "vit_b_16"))
-    # a reference SimCLR .pth on vit_b_16 holds a torchvision ViT
+    # a reference SimCLR .pth on vit_b_16 must hold a torchvision ViT (read
+    # in tests/test_torch_convert.py); this ResNet file is refused, named
     vit_simclr = swap("--model", "vit_b_16")
     vit_simclr[vit_simclr.index("--mode") + 1] = "simclr"
     with pytest.raises(SystemExit, match="torchvision ViT"):

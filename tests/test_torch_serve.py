@@ -211,8 +211,11 @@ def test_cli_runs_the_slice(slice_, monkeypatch, tmp_path, capsys):
     assert out[0] == f"Query: {slice_['port_index'].paths[0]}"
     assert len(out) == 4 and out[1].startswith("  1. ")
     assert GalleryIndex.exists(str(tmp_path / "emb"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.run("hair", argv + ["--faiss_index", "x.index"])
+    # --faiss_index imports a prebuilt gallery (tests/test_torch_faiss_io.py)
+    # and refuses the extraction flags, as the JAX CLI does
+    with pytest.raises(SystemExit, match="cannot be combined"):
+        cli.run("hair", argv + ["--faiss_index", "x.index",
+                                "--force_extract"])
 
 
 def _imports(path):
@@ -242,11 +245,30 @@ def test_port_pulls_in_no_jax_at_runtime():
             "pathlib.Path('hairci_torch').rglob('*.py'))\n"
             "mods = [m[:-len('.__init__')] if m.endswith('.__init__') else m "
             "for m in mods]\n"
-            "assert len(mods) > 40, mods\n"
+            "assert len(mods) > 60, mods\n"
+            "assert {'hairci_torch.models.face_vit', "
+            "'hairci_torch.retrieval.faiss_io', "
+            "'hairci_torch.native.flatindex', "
+            "'hairci_torch.preprocess.face_toolkit', "
+            "'hairci_torch.serve.demo', "
+            "'hairci_torch.serve.visualizer.server', "
+            "'hairci_torch.cli.face_retrieval'} <= set(mods), mods\n"
             "for m in mods + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml', 'hairci'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_serving_api_imports_neither_pydantic_nor_the_visualizer():
+    """``hairci_torch.serve`` imports nothing itself: the API and the demo
+    run where pydantic (the visualizer's schemas) is not installed."""
+    code = ("import sys\n"
+            "import hairci_torch.serve.api, hairci_torch.serve.demo\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] == "
+            "'pydantic' or 'visualizer' in m)\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -307,7 +307,7 @@ def test_reference_pth_loads_as_jax_reads_it(tmp_path):
     torch.save({"model": ref, "epoch": 3}, path)
 
     args = type("Args", (), {"mode": "simclr_supcon", "model": "resnet18"})
-    sd = _reference_state_dict(args, path)
+    sd = _reference_state_dict(args, path, state.online)
     state.online.load_state_dict(sd, strict=True)
     for name, t in state.online.state_dict().items():
         assert torch.equal(
