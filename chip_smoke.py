@@ -113,6 +113,26 @@ Phases, in order; any failure raises and exits non-zero:
                 CIFAR-stem ResNet-18, no bn_stats; the result file of each;
                 unit-norm features; the probe's accuracy and the variance
                 ratio printed.
+  7g. train-mae -- MAE (configs/pretrain_mae.yaml as flags: ViT-B/16 at
+                full width and depth with the 8 x 512 decoder, lr 1e-3)
+                through mainpretrain.main, bf16, seeded random weights, B cut
+                from 256 to 64, 2 epochs of 2 steps on phase 6's manifest: no
+                kernel launch (no BatchNorm, rotation, 3x3 conv or gallery
+                search on this path); a finite "Loss =" line each epoch and a
+                checkpoint. Then 10 steps timed after 3 by
+                utils.profiling.StepTimer, the peak memory, the step's GFLOP
+                an image by FlopCounterMode, and one step at the config's
+                B=256 where the B=64 peak, scaled by rows, is below 75 GiB.
+                Then knn_classification.main --mode mae on the checkpoint (as
+                phase 7c: no launch, unit-norm 768-d features,
+                self-retrieval at k=1).
+  7h. train-simmim -- the same for SimMIM (ViT-B/16 over all 196 tokens,
+                mask ratio 0.6); its features are the mean of the normed
+                tokens. Near-duplicate crops' features of this barely
+                trained model lie within rounding of each other, so
+                self-retrieval is printed, not held; instead the features of
+                16 test images, less their mean, must agree f32 card against
+                f32 CPU.
   8. knn at full size -- ``knn_predict_multi`` on seeded clustered features,
                 103,945 x 2048 gallery, 61 classes, 4096 queries, the seven
                 ks; 512 queries against the port on the CPU; exact ties by
@@ -128,7 +148,9 @@ Phases, in order; any failure raises and exits non-zero:
  10. train parity -- one warmup step of ResNet-50 at 224, B=8, f32, on the
                 card and on the CPU from identical weights, views and draws;
                 then the same for ViT-B/16 with the S2R2 term, one SimCLR
-                step (ResNet-50) and one SupCon step (CIFAR-stem ResNet-18).
+                step (ResNet-50), one SupCon step (CIFAR-stem ResNet-18), and
+                one MAE and one SimMIM step (ViT-B/16) from identical
+                weights, view and mask.
 The last three lines are the serving numbers of phases 4d and 4e as one
 JSON object, the kernels' JSON record and ``{"ok": true, "device":
 {...}}``. Imports nothing of JAX.
@@ -1965,7 +1987,11 @@ def phase_train_vit(workdir: str, train: dict) -> dict:
 # phase 7c: kNN evaluation of the ViT SHAM checkpoint
 # ---------------------------------------------------------------------------
 
-def phase_knn_vit(workdir: str, train_vit: dict) -> dict:
+def phase_knn_vit(workdir: str, train_vit: dict, mode: str = "SHAM",
+                  self_retrieval: bool = True) -> dict:
+    """knn_classification.main on a ViT-B/16 checkpoint of ``mode`` (SHAM in
+    phase 7c, mae and simMIM in phases 7g and 7h); self-retrieval at k=1 is
+    printed, and asserted where ``self_retrieval``."""
     import numpy as np
     import torch
 
@@ -1973,8 +1999,8 @@ def phase_knn_vit(workdir: str, train_vit: dict) -> dict:
     from hairci_torch.eval.knn import DEFAULT_KS, knn_predict
 
     test_csv = os.path.join(workdir, "test.csv")    # phase 7's 64 images
-    out_dir = os.path.join(workdir, "knn_vit_out")
-    argv = ["--mode", "SHAM", "--model", "vit_b_16", "--size", str(SIZE),
+    out_dir = os.path.join(workdir, f"knn_vit_out_{mode}")
+    argv = ["--mode", mode, "--model", "vit_b_16", "--size", str(SIZE),
             "--dtype", "bfloat16", "--eval_type", "knn",
             "--batch_size", str(CLI_BATCH), "--num_workers", "8",
             "--checkpoint_path", train_vit["save_path"],
@@ -1990,7 +2016,7 @@ def phase_knn_vit(workdir: str, train_vit: dict) -> dict:
     launches = _counts()
     _check_decode_route("knn_classification vit_b_16", _decodes() - decodes,
                         128 + 64)
-    print(f"knn_classification SHAM vit_b_16 {SIZE}px bf16, batches of "
+    print(f"knn_classification {mode} vit_b_16 {SIZE}px bf16, batches of "
           f"{CLI_BATCH}: 128 train + 64 test images in {seconds:.2f} s (model"
           f" build and checkpoint load included); launches {launches}")
     if any(launches.values()):
@@ -2005,7 +2031,8 @@ def phase_knn_vit(workdir: str, train_vit: dict) -> dict:
             raise AssertionError(f"knn_evaluation_results.txt: no block for "
                                  f"k={k}")
         accuracy[k] = float(text.split(head)[1].split("\n")[0])
-    print(f"knn_evaluation_results.txt (vit_b_16): accuracy by k {accuracy}")
+    print(f"knn_evaluation_results.txt ({mode} vit_b_16): accuracy by k "
+          f"{accuracy}")
     tr_f, tr_l, te_f, te_l = clf.extracting_features()
     if tr_f.shape != (128, WIDTH) or te_f.shape != (64, WIDTH):
         raise AssertionError(f"features {tr_f.shape} {te_f.shape}")
@@ -2014,8 +2041,16 @@ def phase_knn_vit(workdir: str, train_vit: dict) -> dict:
         if not (np.isfinite(f).all() and np.abs(norms - 1).max() < 1e-3):
             raise AssertionError("features are not finite and unit-norm")
     self_hit = float(np.mean(knn_predict(tr_f, tr_l, te_f, 1) == te_l))
-    print(f"self-retrieval at k=1 (vit_b_16): {100 * self_hit:.1f} %")
-    if self_hit != 1.0:
+    # how far apart two different images' features lie: the noise of the
+    # forward (the same image in another batch) must stay below it
+    cos = te_f @ te_f.T
+    np.fill_diagonal(cos, -1.0)
+    own = np.sum(te_f * tr_f[:64], axis=1)          # rows 0-63: the same
+    print(f"self-retrieval at k=1 ({mode} vit_b_16): "
+          f"{100 * self_hit:.1f} %; 1 - cosine to the image's own train row: "
+          f"max {float(np.max(1 - own)):.3g}; to the nearest other image: min "
+          f"{float(np.min(1 - cos.max(1))):.3g}")
+    if self_retrieval and self_hit != 1.0:
         raise AssertionError("k=1 self-retrieval is not 100 %")
     del clf
     torch.cuda.empty_cache()
@@ -2162,6 +2197,197 @@ def phase_train_baseline(workdir: str, train: dict, mode: str) -> dict:
              f"GiB" if config["fits"] else "does not fit"))
     return {"launches": launches, "save_path": save_path, "timed": timed,
             "config_batch": config, "peak_gib": peak}
+
+
+# ---------------------------------------------------------------------------
+# phases 7g and 7h: the masked-image recipes through the training CLI
+# ---------------------------------------------------------------------------
+
+# mode -> the tokens the encoder sees at 224 px (MAE: the 49 kept of 196 and
+# cls; SimMIM: all 196), the decoder built beside it, and whether the kNN
+# check holds self-retrieval at k=1. The 64 crops hold near-duplicates: the
+# nearest other image lies at 1 - cosine = 3.0e-6 (SHAM ViT) and 3.2e-6
+# (MAE) of a barely trained model's cls token, and within rounding of it
+# for SimMIM's mean of 196 normed tokens (on the card: 93.8 % self-retrieval
+# in bf16, 81.2 % in f32). SimMIM's features are held card against CPU
+# instead, after the mean over the images is taken out
+MASKED = {"mae": {"tokens": 50, "decoder": (8, 512), "self_retrieval": True},
+          "simMIM": {"tokens": 196, "decoder": None, "self_retrieval": False}}
+MASKED_EPOCHS = 2
+
+
+def _masked_step_times(recipe, B: int, images=None, runs: int = 10,
+                       warmup: int = 3) -> dict:
+    """A fresh seeded state at batch ``B`` (on ``images``, else a seeded
+    uint8 batch at 256 px): ``runs`` steps timed after ``warmup`` by
+    ``utils.profiling.StepTimer`` (the card synchronised round each step),
+    the peak memory of state and steps, and the step's operations an image
+    by ``FlopCounterMode`` (one more step, counted, not timed)."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from hairci_torch.utils.profiling import StepTimer
+
+    if images is None:
+        images = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, 256, (B, 256, 256, 3), dtype=np.uint8)).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = recipe.create_state(SEED, B, torch.device("cuda"))
+    timer = StepTimer(warmup=warmup, device="cuda")
+    for i in range(warmup + runs):
+        with timer:
+            recipe.train_step(state, images, torch.Generator().manual_seed(
+                1000 + i))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counter = FlopCounterMode(display=False)
+    with counter:
+        recipe.train_step(state, images, torch.Generator().manual_seed(999))
+    torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    del state
+    torch.cuda.empty_cache()
+    return {"ms": timer.p50 * 1e3, "mean_ms": timer.mean * 1e3,
+            "peak_gib": peak, "gflop_per_image": flops / B / 1e9,
+            "tflop_s": flops / timer.p50 / 1e12}
+
+
+def _features_card_vs_cpu(mode: str, save_path: str, test_csv: str,
+                          n: int = 16) -> float:
+    """The checkpoint's eval features of the first ``n`` test images (the
+    kNN loader's centre crops), f32 on the card (TF32 off) against f32 on
+    the CPU, each less the mean over the images: the part that tells two
+    images apart must agree (relative error < 1e-2)."""
+    import torch
+
+    from hairci_torch.data import DataLoader, load_manifest
+    from hairci_torch.ssl import build_recipe
+    from hairci_torch.train import checkpoint as ckpt_lib
+
+    loader = DataLoader(load_manifest(test_csv, DATASET), n, size=SIZE,
+                        mode="center_crop", shuffle=False, num_workers=8)
+    images = torch.from_numpy(next(iter(loader))[0])
+    rec = build_recipe(mode, img_size=SIZE, dtype=torch.float32)
+    path = ckpt_lib.get_latest_checkpoint(save_path)
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        state = rec.create_state(SEED, n, torch.device(dev))
+        ckpt_lib.restore_online_only(path, state)
+        feats[dev] = rec.extract_features(state, images.to(dev)).cpu().double()
+        del state
+    centred = {dev: f - f.mean(0) for dev, f in feats.items()}
+    rel = float((centred["cuda"] - centred["cpu"]).norm()
+                / centred["cpu"].norm())
+    spread = float(centred["cpu"].norm(dim=1).mean()
+                   / feats["cpu"].norm(dim=1).mean())
+    print(f"{mode} eval features, {n} images, f32 card vs f32 CPU: relative "
+          f"error {rel:.3g} of the part that differs between images (that "
+          f"part is {spread:.3g} of a feature's norm)")
+    if not rel < 1e-2:
+        raise AssertionError(f"{mode} features: card and CPU differ by {rel}")
+    torch.cuda.empty_cache()
+    return rel
+
+
+def phase_train_masked(workdir: str, train: dict, mode: str) -> dict:
+    """``configs/pretrain_mae.yaml`` as flags (SimMIM has no config; the
+    same flags), B cut from 256 to 64, through mainpretrain.main: the
+    ViT-B/16 recipe at full width and depth, no kernel launch, a finite
+    ``Loss =`` line each epoch, a checkpoint; then the step timed at B=64
+    and at the config's B=256 where the B=64 peak, scaled by rows, fits."""
+    import torch
+
+    from hairci_torch.cli import mainpretrain
+
+    steps_per_epoch = 128 // TRAIN_BATCH
+    steps = MASKED_EPOCHS * steps_per_epoch
+    argv = ["--mode", mode, "--model", "vit_b_16", "--lr", "0.001",
+            "--size", str(SIZE), "--dtype", "bfloat16", "--seed", "42",
+            "--batch_size", str(TRAIN_BATCH), "--epochs", str(MASKED_EPOCHS),
+            "--num_workers", "8", "--train_annotation", train["manifest"],
+            "--img_dir", DATASET,
+            "--save_path", os.path.join(workdir, f"out_{mode}")]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    decodes = _decodes()
+    t0 = time.perf_counter()
+    trainer = mainpretrain.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    _check_decode_route(f"mainpretrain {mode}", _decodes() - decodes,
+                        MASKED_EPOCHS * 128)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"mainpretrain {mode} vit_b_16 {SIZE}px bf16 B={TRAIN_BATCH}: "
+          f"{steps} steps over {MASKED_EPOCHS} epochs in {seconds:.1f} s "
+          f"(model build and first-step warmup included); peak memory "
+          f"{peak:.2f} GiB; launches {launches}")
+    # no BatchNorm, no rotation, no 3x3 conv, no gallery search on this path
+    if any(launches.values()):
+        raise AssertionError(f"{mode} launched a kernel: {launches}")
+    recipe, module = trainer.recipe, trainer.state.online
+    encoder = module.encoder if mode == "mae" else module
+    width, depth = encoder.embed_dim, len(encoder.blocks)
+    decoder = ((len(module.decoder.blocks), module.decoder.embed.out_features)
+               if mode == "mae" else None)
+    if (recipe.backbone, width, depth, decoder) != (
+            "vit_base_patch16", WIDTH, 12, MASKED[mode]["decoder"]):
+        raise AssertionError(f"{mode}: {recipe.backbone} {width} x {depth}, "
+                             f"decoder {decoder}")
+    if trainer.state.step != steps:
+        raise AssertionError(f"{mode}: {trainer.state.step} steps")
+    with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    with open(os.path.join(trainer.save_path, "training_log.txt")) as f:
+        log = f.read()
+    for m in metrics:
+        print(f"{mode} epoch {m['epoch']}: loss {m['loss']:.6f} "
+              f"{m['images_per_sec']:.1f} img/s (host clock, loader "
+              f"included)")
+    if [m["epoch"] for m in metrics] != list(range(MASKED_EPOCHS)) or \
+            not all(math.isfinite(m["loss"]) for m in metrics) or \
+            log.count(": Loss = ") != MASKED_EPOCHS:
+        raise AssertionError(f"{mode}: metrics {metrics}, log {log!r}")
+    ckpt = torch.load(os.path.join(trainer.save_path, "model_ckpt_latest"),
+                      map_location="cpu", weights_only=True)
+    if set(ckpt) != {"online", "optimizer", "step", "epoch"}:
+        raise AssertionError(f"{mode} checkpoint keys {sorted(ckpt)}")
+    images, _ = next(iter(trainer.train_loader))
+    images = torch.from_numpy(images).cuda()
+    save_path = trainer.save_path
+    del trainer, module, encoder, ckpt
+    torch.cuda.empty_cache()
+
+    timed = _masked_step_times(recipe, TRAIN_BATCH, images)
+    print(f"train_step {mode} vit_b_16 bf16 B={TRAIN_BATCH} (encoder over "
+          f"{MASKED[mode]['tokens']} tokens): p50 {timed['ms']:.2f} ms, mean "
+          f"{timed['mean_ms']:.2f} ms ({TRAIN_BATCH * 1e3 / timed['ms']:.1f} "
+          f"img/s), StepTimer, 10 after 3; {timed['gflop_per_image']:.2f} "
+          f"GFLOP an image (FlopCounterMode, forward and backward), "
+          f"{timed['tflop_s']:.1f} TFLOP/s; peak memory "
+          f"{timed['peak_gib']:.2f} GiB")
+    extrapolated = timed["peak_gib"] * CONFIG_BATCH / TRAIN_BATCH
+    if extrapolated < FIT_GIB:
+        config = {"fits": True, **_masked_step_times(
+            recipe, CONFIG_BATCH, runs=1, warmup=1)}
+    else:
+        config = {"fits": False, "extrapolated_peak_gib": extrapolated}
+    print(f"train_step {mode} vit_b_16 bf16 B={CONFIG_BATCH} (the config's "
+          f"batch; {timed['peak_gib']:.2f} GiB at B={TRAIN_BATCH} scales to "
+          f"{extrapolated:.1f} GiB): "
+          + (f"{config['ms']:.2f} ms, peak memory {config['peak_gib']:.2f} "
+             f"GiB, {config['tflop_s']:.1f} TFLOP/s" if config["fits"]
+             else "does not fit"))
+    knn = phase_knn_vit(workdir, {"save_path": save_path,
+                                  "manifest": train["manifest"]}, mode,
+                        MASKED[mode]["self_retrieval"])
+    if not MASKED[mode]["self_retrieval"]:
+        _features_card_vs_cpu(mode, save_path,
+                              os.path.join(workdir, "test.csv"))
+    return {"launches": launches, "knn_launches": knn["launches"],
+            "timed": timed, "config_batch": config, "peak_gib": peak,
+            "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -2550,6 +2776,50 @@ def phase_train_parity_baseline(mode: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_train_parity_masked(mode: str) -> None:
+    """One f32 step of MAE or SimMIM (ViT-B/16) at 224, B=8, on the card
+    and on the CPU from identical weights, view and mask."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.models.masking import random_token_mask_from_noise
+    from hairci_torch.ssl import build_recipe
+
+    B = 8
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8))
+    rec = build_recipe(mode, img_size=SIZE, weight_decay=1e-4,
+                       dtype=torch.float32)
+    draws = rec.draw(torch.Generator().manual_seed(SEED), B, 256, 256)
+    (view,) = rec.transform.apply(images, draws["views"])
+    ids_keep, ids_restore, maskf = random_token_mask_from_noise(
+        draws["noise"], rec.mask_ratio)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = rec.create_state(SEED, B, torch.device(dev))
+        t0 = time.perf_counter()
+        if mode == "mae":
+            args = (ids_keep.to(dev), ids_restore.to(dev), maskf.to(dev))
+        else:
+            args = ((maskf > 0.5).to(dev),)
+        m = rec.step_on_view(state, view.to(dev), *args)
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in state.online.named_parameters()}
+        out[dev] = (float(m["loss"]), grads)
+        print(f"train parity {dev}: {mode} step vit_b_16 {SIZE}px B={B} f32: "
+              f"loss {out[dev][0]:.7f} ({time.perf_counter() - t0:.1f} s)")
+        del state
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    gmax = max((out["cuda"][1][n] - g).abs().max().item()
+               for n, g in out["cpu"][1].items())
+    print(f"train parity {mode}: relative loss difference {rel:.3g}, max "
+          f"|grad difference| {gmax:.3g}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"card and CPU losses differ by {rel:.3g}")
+    torch.cuda.empty_cache()
+
+
 def kernel_times(root: str) -> int:
     """``python3 chip_smoke.py --kernel-times [DIR]``: the card's and the
     host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step,
@@ -2656,6 +2926,8 @@ def main() -> int:
         runs = {mode: phase_train_baseline(workdir, train, mode)
                 for mode in BASELINES}
         evals = phase_eval_baselines(workdir, train, runs)
+        masked = {mode: phase_train_masked(workdir, train, mode)
+                  for mode in MASKED}
     vit = train_vit["launches"]
     phase_probe_full(phase_knn_full())
     phase_embed(kern["conv3x3"]["times"])
@@ -2663,6 +2935,8 @@ def main() -> int:
     phase_train_parity("vit_b_16", s2r2_weight=1.0)
     for mode in BASELINES:
         phase_train_parity_baseline(mode)
+    for mode in MASKED:
+        phase_train_parity_masked(mode)
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
     conv224 = kern["conv3x3"]["times224"][CLI_BATCH]
@@ -2728,7 +3002,7 @@ def main() -> int:
                   "cli_s": faiss["cli_s"], "demo_s": faiss["demo_s"]},
         "flat_search_ms": {f"Q={q}": {"host": h, "card": c}
                            for q, (h, c) in faiss["host_times"].items()}}}))
-    print(json.dumps({"kernels": topk_rows + [
+    rows = topk_rows + [
         {"name": "rotate_shear", "route": "cuda",
          "source": "hairci_torch/ops/csrc/rotate.cu",
          "replaces": "hairci/ops/rotate_pallas.py:70",
@@ -2775,7 +3049,16 @@ def main() -> int:
          "ms_224": conv224["ms"], "host_ms_224": conv224["host_ms"],
          "plain_ms_224": conv224["plain_ms"],
          "bound_ms_224": conv224["bound_ms"],
-         "library_ms_224": conv224["library_ms"]}]}))
+         "library_ms_224": conv224["library_ms"]}]
+    # the masked-image runs (phases 7g, 7h) launch none of the four
+    for row in rows:
+        key = ("topk_gallery_search" if row["name"].startswith("topk")
+               else row["name"])
+        for mode in MASKED:
+            row[f"launches_{mode.lower()}"] = (masked[mode]["launches"][key]
+                                               + masked[mode]["knn_launches"]
+                                               [key])
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

@@ -348,15 +348,60 @@ def random_gaussian_blur(gen, x, kernel_size, sigma_range=(0.1, 2.0),
 # rotation (positive_transform: RandomRotation +-15 degrees)
 # ---------------------------------------------------------------------------
 
+def _shift_linear(v: torch.Tensor, t: torch.Tensor, axis: int,
+                  max_shift: int, fill: float) -> torch.Tensor:
+    """``_axis_shift``'s ``order=1`` branch on a (B, H, W, C) batch:
+    out[pos] = (1 - f) v[pos - n] + f v[pos - n - 1] along ``axis`` (1 rows,
+    2 columns), n = floor(t), f = t - n; ``t`` broadcasts over (B, H, W) with
+    extent 1 on ``axis``. As in the roll ladder, n is clamped to
+    +-max_shift for the roll (mod the axis length) and the unclamped source
+    decides the fill; the second tap is the first rolled by one more."""
+    size = v.shape[axis]
+    shape = [1, 1, 1]
+    shape[axis] = size
+    pos = torch.arange(size, device=v.device).reshape(shape)
+    n = torch.floor(t)
+    f = (t - n)[..., None]
+    n = n.long()
+    src = pos - n
+    nc = n.clamp(-max_shift, max_shift)
+    taps = []
+    for k, valid in ((0, (src >= 0) & (src <= size - 1)),
+                     (1, (src - 1 >= 0) & (src - 1 <= size - 1))):
+        idx = torch.remainder(pos - nc - k, size).expand(v.shape[:3])
+        y = torch.gather(v, axis, idx[..., None].expand(v.shape))
+        taps.append(torch.where(valid[..., None], y, torch.full_like(y, fill)))
+    return taps[0] * (1.0 - f) + taps[1] * f
+
+
 def rotate_shear(x: torch.Tensor, theta: torch.Tensor, order: int = 0,
                  fill: float = 0.0, max_degrees: float = 45.0):
-    """Per-image nearest rotation by the Paeth 3-shear: the rotate kernel on
-    a CUDA tensor, its plain twin on a CPU tensor. Only ``order=0``
-    (nearest) is ported."""
-    if order != 0:
-        raise NotImplementedError("rotate_shear(order=1) is not yet ported")
-    return _rotate.rotate_shear(x, to_device(theta, x.device),
-                                fill=fill, max_degrees=max_degrees)
+    """Per-image rotation by the Paeth 3-shear (``theta`` in radians, (B,)),
+    ``max_degrees`` the static bound on |theta|.
+
+    ``order=0`` (nearest, torchvision RandomRotation's default): the rotate
+    kernel on a CUDA tensor, its plain twin on a CPU tensor.
+
+    ``order=1`` (linear interpolation in each shear pass): plain torch on
+    every device. The JAX package has no TPU kernel for it either (its Pallas
+    rotate is nearest only), so this is the port of plain JAX, not a
+    fallback; no caller of either package uses it on the training path."""
+    if order == 0:
+        return _rotate.rotate_shear(x, to_device(theta, x.device),
+                                    fill=fill, max_degrees=max_degrees)
+    if order != 1:
+        raise ValueError(f"order must be 0 or 1, got {order}")
+    B, H, W, C = x.shape
+    alpha, beta = _rotate.shear_coefficients(to_device(theta, x.device))
+    mx, my = _rotate.max_shifts(H, W, max_degrees)
+    rows_y = torch.arange(H, dtype=torch.float32, device=x.device) - (H - 1) / 2.0
+    cols_x = torch.arange(W, dtype=torch.float32, device=x.device) - (W - 1) / 2.0
+    tx = (alpha[:, None] * rows_y[None, :])[:, :, None]     # (B, H, 1)
+    ty = (beta[:, None] * cols_x[None, :])[:, None, :]      # (B, 1, W)
+    v = x.float()
+    v = _shift_linear(v, tx, 2, mx, fill)
+    v = _shift_linear(v, ty, 1, my, fill)
+    return _shift_linear(v, tx, 2, mx, fill)
 
 
 def draw_rotation(gen: torch.Generator, B: int,

@@ -1,6 +1,7 @@
 """Augmentation pipelines (port of part of ``hairci/aug/pipelines.py``):
-the SimCLR views, SupCon's two views, the positive transform and the hair
-masking of every SHAM step, and the deterministic kNN and test transforms.
+the SimCLR views, SupCon's two views, the single view of MAE and SimMIM,
+the positive transform and the hair masking of every SHAM step, and the
+deterministic kNN and test transforms.
 
 Each pipeline has a draw half (a dict of small CPU tensors from one CPU
 ``torch.Generator``) and an apply half that takes those draws, so a test can
@@ -112,6 +113,19 @@ def simclr_transform(size: int = 224) -> MultiViewTransform:
     """lightly SimCLRTransform(input_size=size), two views."""
     v = ViewConfig(size=size)
     return MultiViewTransform((v, v))
+
+
+def mae_transform(size: int = 224) -> MultiViewTransform:
+    """lightly MAETransform: one view, RandomResizedCrop(scale=(0.2, 1)) and
+    hflip only, then normalize."""
+    v = ViewConfig(size=size, crop_scale=(0.2, 1.0), cj_p=0.0,
+                   grayscale_p=0.0, blur_p=0.0)
+    return MultiViewTransform((v,))
+
+
+def simmim_transform(size: int = 224) -> MultiViewTransform:
+    """SimMIM's view: the same as MAE's."""
+    return mae_transform(size)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,16 +18,21 @@ both loaders, L2-normalized -> one of four evaluations:
   * ``inter_intra_distance``: intra/inter-class variance of both splits ->
     ``variance_analysis_both.txt``.
 
-``--mode`` is SHAM, simclr or simclr_supcon; other modes exit with "not yet
-ported". ``--device`` defaults to cuda and raises without a card;
-``--device cpu`` runs the kernels' plain twins. ``--model`` is resnet18,
+``--mode`` is SHAM, simclr, simclr_supcon, mae or simMIM; other modes exit
+with "not yet ported". mae and simMIM are ViT-B/16 whatever ``--model``
+says (resnet18, resnet50 and vit_b_16 all mean ``vit_base_patch16``: the
+JAX package's ``VIT_CONFIGS`` lacks ``vit_b_16``). ``--device`` defaults
+to cuda and raises without a card; ``--device cpu`` runs the kernels' plain
+twins. ``--model`` is resnet18,
 resnet50 or vit_b_16. ``--checkpoint_path`` takes a checkpoint of the
 port's Trainer (the file, its run directory or its ``checkpoints/`` folder,
 resolved to the newest), or a reference-trained ``.pth``/``.pt``: SHAM or
 SimCLR on a ResNet, SimCLR on ``vit_b_16`` (a torchvision-layout ViT, read
 by ``models.convert.torchvision_vit_state_dict``), or SupCon. A reference
 ``.pth`` of SHAM on a ViT exits: that layout is known for ResNets only (the
-JAX package's ``convert_sham2`` reads ResNets only).
+JAX package's ``convert_sham2`` reads ResNets only). A reference MAE
+``.pth`` (timm encoder + lightly decoder) and SimMIM ``.pth`` (torchvision
+ViT + linear decoder) are read by ``mae_state_dict`` / ``simmim_state_dict``.
 """
 
 from __future__ import annotations
@@ -38,13 +43,14 @@ import os
 
 import torch
 
-from hairci_torch.cli.mainpretrain import set_seed
 from hairci_torch.data import DataLoader, load_manifest
 from hairci_torch.eval.classifier import Classifier
 from hairci_torch.eval.knn import full_f32
 from hairci_torch.models.convert import (
     load_torch_state_dict,
+    mae_state_dict,
     sham2_state_dict,
+    simmim_state_dict,
     supcon_state_dict,
     torchvision_vit_state_dict,
 )
@@ -52,6 +58,7 @@ from hairci_torch.ssl import build_recipe
 from hairci_torch.train import checkpoint as ckpt_lib
 from hairci_torch.utils.config import merge_config_with_args
 from hairci_torch.utils.device import resolve_device
+from hairci_torch.utils.seeding import set_seed
 
 EVAL_MODES = ["mae", "simclr", "simclr_supcon", "dinov2", "simMIM",
               "siaMIM", "SHAM", "DenseCL", "MSN"]
@@ -88,7 +95,7 @@ def build_eval_parser() -> argparse.ArgumentParser:
     return p
 
 
-PORTED_MODES = ("SHAM", "simclr", "simclr_supcon")
+PORTED_MODES = ("SHAM", "simclr", "simclr_supcon", "mae", "simMIM")
 
 
 def recipe_for_eval(args):
@@ -106,6 +113,13 @@ def _reference_state_dict(args, path: str, model):
     sd = load_torch_state_dict(path)
     if args.mode == "simclr_supcon":
         return supcon_state_dict(sd)
+    if args.mode in ("mae", "simMIM"):
+        reader = mae_state_dict if args.mode == "mae" else simmim_state_dict
+        try:
+            return reader(sd, model)
+        except KeyError as e:
+            raise SystemExit(f"{path}: not a reference {args.mode} .pth "
+                             f"(missing {e})") from e
     if args.model.startswith("vit"):
         if args.mode == "SHAM":
             raise SystemExit(

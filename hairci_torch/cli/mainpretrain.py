@@ -4,8 +4,10 @@ the same flags and YAML.
     python -m hairci_torch.cli.mainpretrain --mode SHAM --model resnet50 \\
         --size 224 --train_annotation data_train.csv --img_dir images/
 
-``--mode`` is SHAM, simclr, S2R2 (SimCLR with the Smooth-AP term) or
-simclr_supcon (SupCon on a CIFAR-stem ResNet). ``--model`` is resnet18,
+``--mode`` is SHAM, simclr, S2R2 (SimCLR with the Smooth-AP term),
+simclr_supcon (SupCon on a CIFAR-stem ResNet), mae or simMIM (the masked-
+image recipes, always on ViT-B/16: ``--model`` is not passed to them, as in
+the JAX CLI). ``--model`` is resnet18,
 resnet50 or vit_b_16 (for SHAM, ViT-B/16 with block remat); ``--S2R2`` adds
 the Smooth-AP term at weight 1 to SHAM and SimCLR. SHAM drops the last
 partial batch; every other mode pads it to the batch size by repeating its
@@ -17,9 +19,7 @@ exit with "not yet ported".
 from __future__ import annotations
 
 import logging
-import random
 
-import numpy as np
 import torch
 
 from hairci_torch.data import DataLoader, load_manifest
@@ -28,15 +28,11 @@ from hairci_torch.ssl import build_recipe
 from hairci_torch.train.engine import Trainer
 from hairci_torch.utils.config import parse_pretrain_args
 from hairci_torch.utils.device import resolve_device
+from hairci_torch.utils.seeding import set_seed
 
+__all__ = ["PORTED_MODES", "build_recipe_from_args", "main", "set_seed"]
 
-def set_seed(seed: int) -> None:
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
-
-
-PORTED_MODES = ("SHAM", "simclr", "S2R2", "simclr_supcon")
+PORTED_MODES = ("SHAM", "simclr", "S2R2", "simclr_supcon", "mae", "simMIM")
 
 
 def build_recipe_from_args(args, num_batches: int):
@@ -61,6 +57,11 @@ def build_recipe_from_args(args, num_batches: int):
         # as in the JAX CLI: the backbone and --temp are not passed, so
         # SupCon trains a CIFAR-stem ResNet-18 at its temperature of 0.07
         return build_recipe(mode, **common)
+    if mode in ("mae", "simMIM"):
+        # as in the JAX CLI: no backbone is passed, so both train
+        # vit_base_patch16 whatever --model says
+        return build_recipe(mode, epochs=args.epochs,
+                            steps_per_epoch=num_batches, **common)
     raise SystemExit(f"mode {mode!r} is not yet ported; ported: "
                      f"{', '.join(PORTED_MODES)}")
 

@@ -25,6 +25,13 @@ of the reference's SimCLR on ``vit_b_16``) as ``convert_torchvision_vit``
 does. ``face_vit_state_dict_from_jax`` maps a JAX ``ViTFace`` and
 ``face_vit_state_dict`` a reference ``ViT_face`` / ``ViTs_face`` ``.pth``
 (``convert_vit_face``) onto the port's ``ViTFace``.
+
+``mae_state_dict_from_jax`` / ``simmim_state_dict_from_jax`` map a JAX
+``MAEModule`` / ``SimMIMModule``; ``mae_state_dict`` reads a reference MAE
+``.pth`` (the timm encoder under ``backbone.vit.``, lightly's decoder under
+``decoder.``) as ``convert_mae`` does, and ``simmim_state_dict`` a reference
+SimMIM ``.pth`` (a torchvision ViT under ``backbone.vit.``, a linear
+``decoder``) as ``convert_simmim`` does.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from hairci_torch.models import resnet
 from hairci_torch.models.face_vit import ViTFace
@@ -55,21 +63,31 @@ def vit_state_dict_from_jax(params: Mapping, depth: int
         "patch_embed.proj.bias": _t(params["patch_embed"]["proj"]["bias"]),
     }
     for i in range(depth):
-        bp = params[f"block{i}"]
-        t = f"blocks.{i}"
-        for norm in ("norm1", "norm2"):
-            sd[f"{t}.{norm}.weight"] = _t(bp[norm]["scale"])
-            sd[f"{t}.{norm}.bias"] = _t(bp[norm]["bias"])
-        for mod, dense in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
-                           ("mlp", "fc2")):
-            sd[f"{t}.{mod}.{dense}.weight"] = _t(
-                np.asarray(bp[mod][dense]["kernel"]).T)
-            sd[f"{t}.{mod}.{dense}.bias"] = _t(bp[mod][dense]["bias"])
+        _block_from_jax(sd, f"blocks.{i}", params[f"block{i}"])
     for n in ("norm", "fc_norm"):
         if n in params:
-            sd[f"{n}.weight"] = _t(params[n]["scale"])
-            sd[f"{n}.bias"] = _t(params[n]["bias"])
+            _put_norm(sd, n, params[n])
     return sd
+
+
+def _block_from_jax(sd: Dict[str, torch.Tensor], t: str,
+                    bp: Mapping) -> None:
+    """A JAX ViT ``Block``'s params as the port's ``Block`` under ``t``."""
+    for norm in ("norm1", "norm2"):
+        _put_norm(sd, f"{t}.{norm}", bp[norm])
+    for mod, dense in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
+                       ("mlp", "fc2")):
+        _put_dense(sd, f"{t}.{mod}.{dense}", bp[mod][dense])
+
+
+def _put_norm(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _put_dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"{name}.bias"] = _t(p["bias"])
 
 
 def _put_bn(sd: Dict[str, torch.Tensor], name: str, p: Mapping,
@@ -374,4 +392,93 @@ def face_vit_state_dict(sd: Mapping[str, torch.Tensor], model: ViTFace
                          ("loss_bias", "loss.bias")):
         if ours in own:
             out[ours] = sd.get(theirs, own[ours])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the masked-image recipes
+# ---------------------------------------------------------------------------
+
+def mae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``MAEModule`` params ({encoder, decoder}) -> the port's
+    ``MAEModule`` state dict (load with ``strict=True``)."""
+    enc = params["encoder"]
+    depth = sum(1 for k in enc if k.startswith("block"))
+    sd = {f"encoder.{k}": v
+          for k, v in vit_state_dict_from_jax(enc, depth).items()}
+    dec = params["decoder"]
+    _put_dense(sd, "decoder.embed", dec["embed"])
+    sd["decoder.mask_token"] = _t(dec["mask_token"])
+    for i in range(sum(1 for k in dec if k.startswith("block"))):
+        _block_from_jax(sd, f"decoder.blocks.{i}", dec[f"block{i}"])
+    _put_norm(sd, "decoder.norm", dec["norm"])
+    _put_dense(sd, "decoder.pred", dec["pred"])
+    return sd
+
+
+def simmim_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``SimMIMModule`` params -> the port's ``SimMIMModule`` state dict
+    (load with ``strict=True``; the position table is a buffer of neither)."""
+    sd = {"mask_token": _t(params["mask_token"])}
+    sd["patch_embed.proj.weight"] = _t(np.transpose(
+        np.asarray(params["patch_embed"]["proj"]["kernel"]), (3, 2, 0, 1)))
+    sd["patch_embed.proj.bias"] = _t(params["patch_embed"]["proj"]["bias"])
+    for i in range(sum(1 for k in params if k.startswith("blocks_"))):
+        _block_from_jax(sd, f"blocks.{i}", params[f"blocks_{i}"])
+    _put_norm(sd, "norm", params["norm"])
+    _put_dense(sd, "decoder", params["decoder"])
+    return sd
+
+
+def _sub(sd: Mapping[str, torch.Tensor], prefix: str
+         ) -> Dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def mae_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
+                   ) -> Dict[str, torch.Tensor]:
+    """A reference MAE checkpoint (lightly's MaskedVisionTransformerTIMM
+    with its timm ViT under ``backbone.vit.``; MAEDecoderTIMM under
+    ``decoder.``: ``decoder_embed``, ``mask_token``, ``decoder_blocks.{i}``,
+    ``decoder_norm``, ``decoder_pred``) -> the key set of ``model`` (the
+    port's ``MAEModule``), as ``convert_mae`` reads it. A file without the
+    decoder keeps ``model``'s own decoder (the JAX package converts only the
+    encoder then). Raises ``KeyError`` where an encoder tensor is missing."""
+    out = {f"encoder.{k}": v for k, v in
+           timm_vit_state_dict(_sub(sd, "backbone.vit."),
+                               model.encoder).items()}
+    dec = _sub(sd, "decoder.")
+    if "decoder_embed.weight" not in dec:
+        out.update({k: v for k, v in model.state_dict().items()
+                    if k.startswith("decoder.")})
+        return out
+    d = model.decoder.embed.out_features
+    pairs = [("embed", "decoder_embed"), ("norm", "decoder_norm"),
+             ("pred", "decoder_pred")]
+    for i in range(len(model.decoder.blocks)):
+        for name in ("norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1",
+                     "mlp.fc2"):
+            pairs.append((f"blocks.{i}.{name}", f"decoder_blocks.{i}.{name}"))
+    for ours, theirs in pairs:
+        for p in ("weight", "bias"):
+            out[f"decoder.{ours}.{p}"] = dec[f"{theirs}.{p}"]
+    out["decoder.mask_token"] = dec["mask_token"].reshape(1, 1, d)
+    return out
+
+
+def simmim_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
+                      ) -> Dict[str, torch.Tensor]:
+    """A reference SimMIM checkpoint (a torchvision ViT under
+    ``backbone.vit.``, a linear ``decoder``) -> the key set of ``model``
+    (the port's ``SimMIMModule``), as ``convert_simmim`` reads it: the patch
+    embedding, blocks and final LayerNorm carry over; ``class_token`` and
+    ``pos_embedding`` are dropped (the module has no cls token and a fixed
+    sin-cos table); the mask token is the one under ``backbone.vit.``, else
+    zeros, as JAX reads it. Raises ``KeyError`` where a tensor is missing."""
+    vit = torchvision_vit_state_dict(_sub(sd, "backbone.vit."), model)
+    out = {k: v for k, v in vit.items()
+           if k.startswith(("patch_embed.", "blocks.", "norm."))
+           or k == "mask_token"}
+    out["decoder.weight"] = sd["decoder.weight"]
+    out["decoder.bias"] = sd["decoder.bias"]
     return out

@@ -31,8 +31,14 @@ them, with the JAX package's modes, on ``torch.utils.checkpoint``:
 0, 2, 4, ... and runs the odd ones plain. Only the blocks are checkpointed,
 and only with grad mode on; the parameters and the results do not change.
 
-Not ported yet: token masking (``ids_keep``, ``token_mask``), LayerScale,
-the cross blocks and the multi-resolution pos-embed resize.
+Token masking, as in the JAX package: ``token_mask`` (B, N) bool puts the
+learned ``mask_token`` in place of the masked patch embeddings, before the
+position table is added (SimMIM, iBOT); ``ids_keep`` (B, K) gathers the kept
+tokens after the table is added and before ``cls`` is prepended (MAE). An
+input of another resolution gets the position table resized bilinearly
+(``resize_pos_embed``, antialiased when it shrinks, as ``jax.image.resize``).
+
+Not ported yet: LayerScale and the cross blocks.
 """
 
 from __future__ import annotations
@@ -78,6 +84,22 @@ def _sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
     pos = pos.reshape(-1)
     out = np.einsum("m,d->md", pos, omega)
     return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def resize_pos_embed(pos_embed: torch.Tensor, new_grid: int,
+                     old_grid: int, num_prefix: int = 1) -> torch.Tensor:
+    """Bilinear resize of (1, prefix + old_grid^2, D) position embeddings to
+    ``new_grid`` (``hairci/models/vit.py:resize_pos_embed``). Half-pixel
+    centres; shrinking widens the triangle kernel by the scale
+    (``antialias=True``), as ``jax.image.resize(..., "bilinear")`` does.
+    Computed in f32."""
+    prefix = pos_embed[:, :num_prefix]
+    d = pos_embed.shape[-1]
+    grid = pos_embed[:, num_prefix:].float().reshape(1, old_grid, old_grid, d)
+    grid = F.interpolate(grid.permute(0, 3, 1, 2), size=(new_grid, new_grid),
+                         mode="bilinear", align_corners=False, antialias=True)
+    patches = grid.permute(0, 2, 3, 1).reshape(1, new_grid * new_grid, d)
+    return torch.cat([prefix.float(), patches], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -194,15 +216,36 @@ class PatchEmbed(nn.Module):
         return x.flatten(2).transpose(1, 2)
 
 
+@torch.no_grad()
+def flax_init_(module: nn.Module,
+               generator: Optional[torch.Generator] = None) -> None:
+    """Flax's initialisers over ``module``'s parameters, in order: N(0, 0.02)
+    for ``cls_token`` / ``mask_token``, lecun-normal for dense and conv
+    kernels (truncated at 2 sigma and rescaled to unit variance over the
+    truncation), zero biases; LayerNorm scales keep their ones."""
+    for name, p in module.named_parameters():
+        if name.split(".")[-1] in ("cls_token", "mask_token"):
+            nn.init.normal_(p, std=0.02, generator=generator)
+        elif name.endswith(".weight") and p.dim() > 1:
+            fan_in = p[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+        elif name.endswith(".bias"):
+            nn.init.zeros_(p)
+
+
 # ---------------------------------------------------------------------------
 # the transformer
 # ---------------------------------------------------------------------------
 
 class VisionTransformer(nn.Module):
-    """ViT encoder. ``forward(x, pool=False)`` takes NHWC images and returns
-    the final-normed token sequence (B, N+1, D) in f32 with cls first, or
-    pooled (B, D) features when ``pool=True``: mean of patch tokens +
-    fc_norm when ``global_pool``, else the final-normed cls token.
+    """ViT encoder. ``forward(x, ids_keep=None, pool=False,
+    token_mask=None)`` takes NHWC images and returns the final-normed token
+    sequence (B, K+1, D) in f32 with cls first (K = N, or the kept count of
+    ``ids_keep``), or pooled (B, D) features when ``pool=True``: mean of
+    patch tokens + fc_norm when ``global_pool``, else the final-normed cls
+    token.
 
     Parameters are drawn from ``generator`` (lecun-normal dense and conv
     kernels as in Flax, zero biases, N(0, 0.02) cls/mask tokens, fixed
@@ -227,11 +270,12 @@ class VisionTransformer(nn.Module):
         self.dtype = dtype
         self.global_pool = global_pool
         self.remat = remat
-        grid = img_size // patch_size
+        self.patch_size = patch_size
+        self.grid_size = grid = img_size // patch_size
         self.num_patches = grid * grid
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype)
-        # the mask token is unused by the eval forward; it is kept so the
-        # key set matches the JAX tree (export_vit writes it)
+        # the mask token is used by ``token_mask`` only; it is always kept so
+        # the key set matches the JAX tree (export_vit writes it)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(
             torch.from_numpy(get_2d_sincos_pos_embed(
@@ -244,40 +288,34 @@ class VisionTransformer(nn.Module):
         self.norm = LayerNorm(embed_dim)
         if global_pool:
             self.fc_norm = LayerNorm(embed_dim)
-        self._init_weights(generator)
+        flax_init_(self, generator)
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 m.to(param_dtype or dtype)
-
-    @torch.no_grad()
-    def _init_weights(self, generator: Optional[torch.Generator]) -> None:
-        for name, p in self.named_parameters():
-            if name in ("cls_token", "mask_token"):
-                nn.init.normal_(p, std=0.02, generator=generator)
-            elif name.endswith(".weight") and p.dim() > 1:
-                fan_in = p[0].numel()
-                # Flax lecun_normal: truncated at 2 sigma, rescaled to unit
-                # variance over the truncation
-                std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-            elif name.endswith(".bias"):
-                nn.init.zeros_(p)
 
     def _remat_block(self, i: int) -> bool:
         if self.remat == "half":
             return i % 2 == 0
         return self.remat in (True, "full")
 
-    def forward(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                ids_keep: Optional[torch.Tensor] = None, pool: bool = False,
+                token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B = x.shape[0]
         tokens = self.patch_embed(x.to(self.dtype))
-        if tokens.shape[1] != self.num_patches:
-            raise ValueError(f"{tokens.shape[1]} patches, model expects "
-                             f"{self.num_patches} (pos-embed resize is not "
-                             "ported)")
+        if token_mask is not None:
+            tokens = torch.where(token_mask[..., None],
+                                 self.mask_token.to(tokens.dtype), tokens)
         pos_embed = self.pos_embed
+        if tokens.shape[1] != self.num_patches:
+            # another resolution (multi-crop views): resize the table
+            pos_embed = resize_pos_embed(
+                pos_embed, int(tokens.shape[1] ** 0.5), self.grid_size)
         tokens = tokens + pos_embed[:, 1:].to(tokens.dtype)
+        if ids_keep is not None:
+            # a permutation's rows: the backward scatters no index twice
+            tokens = torch.gather(tokens, 1, ids_keep[..., None].expand(
+                -1, -1, tokens.shape[-1]))
         cls = (self.cls_token + pos_embed[:, :1]).to(tokens.dtype)
         tokens = torch.cat([cls.expand(B, -1, -1), tokens], dim=1)
         for i, blk in enumerate(self.blocks):

@@ -2,7 +2,8 @@
 
 A recipe owns its modules and exposes ``create_state``, ``train_step`` and
 ``extract_features``; ``build_recipe`` is keyed on the reference ``--mode``
-strings. Ported: ``SHAM``, ``simclr`` and ``simclr_supcon``.
+strings. Ported: ``SHAM``, ``simclr``, ``simclr_supcon``, ``mae`` and
+``simMIM``.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def register_recipe(name: str):
 
 def build_recipe(mode: str, **kwargs):
     # importing a recipe module registers it
-    from hairci_torch.ssl import sham, simclr, supcon  # noqa: F401
+    from hairci_torch.ssl import (  # noqa: F401
+        mae, sham, simclr, simmim, supcon)
 
     if mode not in RECIPES:
         raise NotImplementedError(

@@ -1,1 +1,1 @@
-"""Small utilities (device resolution)."""
+"""Small utilities: device resolution, seeding, profiling, config."""

@@ -173,8 +173,14 @@ def test_rotate_bitwise():
                              max_degrees=15.0)
     got = ops.rotate_shear(_t(x), _t(theta), max_degrees=15.0)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError):
-        ops.rotate_shear(_t(x), _t(theta), order=1)
+    # order=1 is plain torch on every device, as it is plain JAX
+    want = jops.rotate_shear(jnp.asarray(x), theta, order=1,
+                             max_degrees=15.0)
+    got = ops.rotate_shear(_t(x), _t(theta), order=1, max_degrees=15.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="order must be 0 or 1"):
+        ops.rotate_shear(_t(x), _t(theta), order=3)
     # random_rotate is draw_rotation followed by rotate_shear
     gen = torch.Generator().manual_seed(10)
     drawn = ops.draw_rotation(torch.Generator().manual_seed(10), B, 15.0)
@@ -208,6 +214,46 @@ def test_simclr_view_pipeline():
     # after normalize (1/std ~ 4.4) the 1e-5 of the ops grows to ~5e-5
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=5e-5)
+
+
+@pytest.mark.parametrize("shape,degrees,fill", [
+    ((3, 17, 23, 3), 15.0, 0.0), ((2, 32, 32, 1), 45.0, 0.5),
+    ((2, 9, 12, 4), 30.0, 0.0)])
+def test_rotate_linear_matches_jax(shape, degrees, fill):
+    """``rotate_shear(order=1)``: floor shifts, one roll-by-one blend a
+    pass, the clamped roll and the unclamped fill of JAX's roll ladder. The
+    same f32 operations in the same order; XLA may contract the blend into
+    a fused multiply-add, so within 1e-6 (a few ulps of values in [0, 1])."""
+    key = jax.random.key(shape[1])
+    x = _x(shape[1], shape)
+    theta = jax.random.uniform(key, (shape[0],), minval=-degrees,
+                               maxval=degrees) * (math.pi / 180.0)
+    want = jops.rotate_shear(jnp.asarray(x), theta, order=1, fill=fill,
+                             max_degrees=degrees)
+    got = ops.rotate_shear(_t(x), _t(theta), order=1, fill=fill,
+                           max_degrees=degrees)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+    # the interpolation is not the nearest rotation
+    near = ops.rotate_shear(_t(x), _t(theta), fill=fill, max_degrees=degrees)
+    assert not torch.equal(got, near)
+
+
+def test_mae_view_pipeline():
+    """``mae_transform``: one view, RandomResizedCrop(0.2, 1) + hflip."""
+    key, x = jax.random.key(12), (_x(12) * 255).astype(np.uint8)
+    jtf = jpipe.mae_transform(24)
+    (want,) = jtf(key, jnp.asarray(x))
+    (k0,) = jax.random.split(key, 1)
+    (view,) = jtf.views
+    assert (view.crop_scale, view.cj_p, view.grayscale_p, view.blur_p) == (
+        (0.2, 1.0), 0.0, 0.0, 0.0)
+    for tf in (pipe.mae_transform(24), pipe.simmim_transform(24)):
+        (got,) = tf.apply(_t(x), [view_draws(view, k0, B, H, W)])
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=5e-5)
+        draws = tf.draw(torch.Generator().manual_seed(0), B, H, W)
+        assert set(draws[0]) == {"crop", "flip"}
 
 
 def test_draw_halves_are_seeded():
