@@ -36,7 +36,9 @@ Phases, in order; any failure raises and exits non-zero:
                 strided SimCLR view, and timed on both routes. conv3x3 bf16
                 also at (64 / 48 / 47, 224, 224, 64), the CIFAR-stem
                 ResNet-18's layer1, and bn_stats at the 20 BN inputs of one
-                SupCon forward (layer1 at 128 x 224 x 224 rows).
+                SupCon forward (layer1 at 128 x 224 x 224 rows) and at the 4
+                of one MSN step (the head's (64, 2048) and (640, 2048)
+                bf16, twice each).
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
@@ -133,6 +135,29 @@ Phases, in order; any failure raises and exits non-zero:
                 self-retrieval is printed, not held; instead the features of
                 16 test images, less their mean, must agree f32 card against
                 f32 CPU.
+  7i. train-dinov2 -- DINOv2 (configs/pretrain_dinov2.yaml as flags:
+                ViT-S/16 with LayerScale 1e-5, the 2048-2048-256 head into
+                65,536 prototypes shared by DINO and iBOT, 2 global + 8
+                local 96-px views, lr 1e-3, weight decay 0.04) through
+                mainpretrain.main, bf16, seeded random weights, the config's
+                B=128 for 2 epochs of 1 step on phase 6's manifest: no
+                kernel launch, a finite "Loss =" line each epoch (the DINO,
+                iBOT and KoLeo terms printed), both centres (1, 65536) in the
+                checkpoint. Then the step timed by StepTimer at B=128 with
+                block remat (the recipe's default) and without it where the
+                peak at B=32, scaled by rows, is below 75 GiB; peak memory and
+                GFLOP an image. Then knn_classification.main --mode dinov2
+                (no launch, unit-norm 384-d features; self-retrieval printed,
+                the features held f32 card against CPU as SimMIM's).
+  7j. train-msn -- MSN (ViT-B/16, the (Linear + BN + GELU) x 2 + Linear head
+                2048 -> 256, 1,024 prototypes, 2 views + 10 focal 96-px
+                views, mask ratio 0.15) the same way at B=64, 2 epochs of 2
+                steps: exactly 4 bn_stats launches a step (the head's BNs
+                over the anchors, then the focal views), none of the other
+                three. Timed at B=64 and at the largest of 128 and 256 whose
+                scaled peak fits. Then knn_classification.main --mode MSN:
+                the target branch's features, no launch, self-retrieval at
+                k=1.
   8. knn at full size -- ``knn_predict_multi`` on seeded clustered features,
                 103,945 x 2048 gallery, 61 classes, 4096 queries, the seven
                 ks; 512 queries against the port on the CPU; exact ties by
@@ -150,10 +175,11 @@ Phases, in order; any failure raises and exits non-zero:
                 then the same for ViT-B/16 with the S2R2 term, one SimCLR
                 step (ResNet-50), one SupCon step (CIFAR-stem ResNet-18), and
                 one MAE and one SimMIM step (ViT-B/16) from identical
-                weights, view and mask.
-The last three lines are the serving numbers of phases 4d and 4e as one
-JSON object, the kernels' JSON record and ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+                weights, view and mask, and one DINOv2 and one MSN step at
+                full width (every loss term, and DINOv2's centres).
+The last four lines are the card's name and power limit again, the serving
+numbers of phases 4d and 4e as one JSON object, the kernels' JSON record
+and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 With ``--kernel-times [DIR]`` it only times the bn_stats, Conv2d, top-k and
 rotate wrappers of the ``hairci_torch`` package under DIR (see
@@ -282,15 +308,20 @@ def _kernel_times(fn) -> tuple:
 # phase 1: device
 # ---------------------------------------------------------------------------
 
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device() -> dict:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(_card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -863,7 +894,30 @@ def phase_bn_stats() -> dict:
           f"ms by {sc_bound[1]}), {sc_h:.3f} ms on the host; twin {sc_t:.3f} "
           f"ms; vs twin and run to run: ok")
     torch.cuda.empty_cache()
+    # MSN's head: its two train-mode BNs over the anchors (B rows) and over
+    # the 10 focal views (10B rows), bf16: 4 launches a step
+    msn = [(TRAIN_BATCH, 2048), (10 * TRAIN_BATCH, 2048)]
+    msn_k = msn_h = msn_t = 0.0
+    for m, c in msn:
+        x = (torch.randn(m, c, device=dev, generator=gen) * 2
+             + 1).bfloat16()
+        err = max(err, _check_bn(x, 1e-4, 1e-3))
+        kern, host = _kernel_times(lambda: bn_stats(x))
+        twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
+        msn_k, msn_h, msn_t = (msn_k + 2 * kern, msn_h + 2 * host,
+                               msn_t + 2 * twin)
+        print(f"bn_stats ({m}, {c}) bf16 x2 per MSN step, {blocks(x)}: "
+              f"kernel {kern:.4f} ms on the card, {host:.4f} ms on the host; "
+              f"twin {twin:.4f} ms")
+    values = sum(2 * m * c for m, c in msn)
+    msn_bound = _bound(2 * values + sum(2 * 8 * c for _, c in msn),
+                       3.0 * values, "f32")
+    print(f"bn_stats, the 4 train-mode BNs of one MSN step (ViT-B/16 head at "
+          f"{TRAIN_BATCH} + {10 * TRAIN_BATCH} rows): kernel {msn_k:.4f} ms "
+          f"on the card (bound {msn_bound[0]:.5f} by {msn_bound[1]}), "
+          f"{msn_h:.4f} ms on the host; twin {msn_t:.4f} ms")
     return {"max_abs_err": err, "step": (step_k, step_t, step_h),
+            "msn_step": (msn_k, msn_t, msn_h), "msn_bound": msn_bound,
             "tool": (tool_k, tool_t, tool_h), "bound": bound,
             "vit_step": (vit_k, vit_t, vit_h), "vit_bound": vit_bound,
             "supcon_step": (sc_k, sc_t, sc_h), "supcon_bound": sc_bound}
@@ -1988,10 +2042,11 @@ def phase_train_vit(workdir: str, train: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_knn_vit(workdir: str, train_vit: dict, mode: str = "SHAM",
-                  self_retrieval: bool = True) -> dict:
-    """knn_classification.main on a ViT-B/16 checkpoint of ``mode`` (SHAM in
-    phase 7c, mae and simMIM in phases 7g and 7h); self-retrieval at k=1 is
-    printed, and asserted where ``self_retrieval``."""
+                  self_retrieval: bool = True, width: int = WIDTH) -> dict:
+    """knn_classification.main on a ViT checkpoint of ``mode`` (SHAM in
+    phase 7c, mae and simMIM in phases 7g and 7h, dinov2 (ViT-S/16, 384-d)
+    and MSN in phases 7i and 7j); self-retrieval at k=1 is printed, and
+    asserted where ``self_retrieval``."""
     import numpy as np
     import torch
 
@@ -2034,7 +2089,7 @@ def phase_knn_vit(workdir: str, train_vit: dict, mode: str = "SHAM",
     print(f"knn_evaluation_results.txt ({mode} vit_b_16): accuracy by k "
           f"{accuracy}")
     tr_f, tr_l, te_f, te_l = clf.extracting_features()
-    if tr_f.shape != (128, WIDTH) or te_f.shape != (64, WIDTH):
+    if tr_f.shape != (128, width) or te_f.shape != (64, width):
         raise AssertionError(f"features {tr_f.shape} {te_f.shape}")
     for f in (tr_f, te_f):
         norms = np.linalg.norm(f, axis=1)
@@ -2273,7 +2328,7 @@ def _features_card_vs_cpu(mode: str, save_path: str, test_csv: str,
     feats = {}
     for dev in ("cuda", "cpu"):
         state = rec.create_state(SEED, n, torch.device(dev))
-        ckpt_lib.restore_online_only(path, state)
+        ckpt_lib.restore_weights(path, state)
         feats[dev] = rec.extract_features(state, images.to(dev)).cpu().double()
         del state
     centred = {dev: f - f.mean(0) for dev, f in feats.items()}
@@ -2387,6 +2442,251 @@ def phase_train_masked(workdir: str, train: dict, mode: str) -> dict:
                               os.path.join(workdir, "test.csv"))
     return {"launches": launches, "knn_launches": knn["launches"],
             "timed": timed, "config_batch": config, "peak_gib": peak,
+            "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phases 7i and 7j: DINOv2 and MSN through the training CLI
+# ---------------------------------------------------------------------------
+
+# mode -> the batch of the CLI run (DINOv2: configs/pretrain_dinov2.yaml's
+# 128, one step an epoch on the 128-row manifest; MSN has no config: 64),
+# the flags of the run (the config's lr, weight decay and seed; MSN the
+# CLI's defaults), the backbone and feature width the recipe must build,
+# the train-mode BN launches of one step (MSN: the head's two BNs over the
+# anchors, then over the focal views; DINOv2 has no BN), and whether the
+# kNN check holds self-retrieval at k=1. DINOv2's LayerScale (1e-5 at init,
+# about 2e-3 after two Adam steps) leaves its cls tokens within rounding of
+# one another: its features are held card against CPU instead
+DISTILL = {"dinov2": {"batch": 128, "flags": ["--lr", "0.001",
+                                              "--weight_decay", "0.04"],
+                      "backbone": "vit_small_patch16", "width": 384,
+                      "bn_per_step": 0, "self_retrieval": False},
+           "MSN": {"batch": TRAIN_BATCH, "flags": ["--lr", "0.001"],
+                   "backbone": "vit_base_patch16", "width": WIDTH,
+                   "bn_per_step": 4, "self_retrieval": True}}
+DISTILL_EPOCHS = 2
+
+
+def _distill_recipe(mode: str, B: int, **kw):
+    """The recipe of the CLI run (bf16 at 224, its lr and weight decay: the
+    config's, or the CLI's default 1e-4 for MSN; the run's schedules) for
+    timing at batch ``B``."""
+    import torch
+
+    from hairci_torch.ssl import build_recipe
+
+    return build_recipe(mode, img_size=SIZE, learning_rate=1e-3,
+                        weight_decay=0.04 if mode == "dinov2" else 1e-4,
+                        dtype=torch.bfloat16, epochs=DISTILL_EPOCHS,
+                        steps_per_epoch=128 // B, **kw)
+
+
+def _print_timed(what: str, B: int, t: dict) -> None:
+    print(f"train_step {what} bf16 B={B}: p50 {t['ms']:.2f} ms, mean "
+          f"{t['mean_ms']:.2f} ms ({B * 1e3 / t['ms']:.1f} img/s), "
+          f"StepTimer, 10 after 3; {t['gflop_per_image']:.2f} GFLOP an image "
+          f"(FlopCounterMode, forward and backward), {t['tflop_s']:.1f} "
+          f"TFLOP/s; peak memory {t['peak_gib']:.2f} GiB")
+
+
+def _device_breakdown(recipe, B: int, images, workdir: str, what: str,
+                      step_ms: float) -> dict:
+    """One step of ``recipe`` at batch ``B`` (after two untraced ones) under
+    ``utils.profiling.trace``: the card's busy time (its kernels' and
+    copies' durations summed; the step runs on one stream), its share of
+    ``step_ms`` (the untraced step's p50: the traced step's wall time
+    carries the profiler's host cost), and the kernels that took most of
+    it."""
+    import collections
+
+    import torch
+
+    from hairci_torch.utils.profiling import trace
+
+    state = recipe.create_state(SEED, B, torch.device("cuda"))
+    for i in range(3):
+        gen = torch.Generator().manual_seed(2000 + i)
+        if i < 2:
+            recipe.train_step(state, images, gen)
+            torch.cuda.synchronize()
+            continue
+        with trace(os.path.join(workdir, f"trace_{what}")) as prof:
+            t0 = time.perf_counter()
+            recipe.train_step(state, images, gen)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] += e.time_range.elapsed_us()
+    busy = sum(by_kernel.values())
+    print(f"{what} step B={B} under torch.profiler: the card busy "
+          f"{busy / 1e3:.2f} ms, {100 * busy / 1e3 / step_ms:.1f} % of the "
+          f"untraced step's p50 {step_ms:.2f} ms (traced wall "
+          f"{wall_us / 1e3:.2f} ms); {len(by_kernel)} distinct kernels")
+    for name, us in by_kernel.most_common(8):
+        print(f"  {us / 1e3:9.2f} ms {100 * us / max(busy, 1):5.1f} %  "
+              f"{name[:110]}")
+    del state
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "top": [(n[:110], us / 1e3)
+                    for n, us in by_kernel.most_common(8)]}
+
+
+def phase_train_distill(workdir: str, train: dict, mode: str) -> dict:
+    """DINOv2 (``configs/pretrain_dinov2.yaml`` as flags: ViT-S/16 with
+    LayerScale, the 65,536-prototype DINO/iBOT head, 2 global + 8 local
+    views, B=128) or MSN (ViT-B/16, 1,024 prototypes, 2 + 10 focal views,
+    B=64) through mainpretrain.main at 224, bf16, for 2 epochs; the launch
+    counts (DINOv2 none, MSN exactly 4 bn_stats a step), a finite ``Loss =``
+    line each epoch, the checkpoint's keys (DINOv2's centres); the step
+    timed by StepTimer (DINOv2 at B=128 with remat True, and False where the
+    peak at B=32 scaled by rows fits; MSN at B=64, then at the largest of
+    128 and 256 whose scaled peak fits); one step at the run's batch under
+    torch.profiler (the card's busy share, the top kernels); then
+    knn_classification.main --mode MODE on the checkpoint (MSN: the target
+    branch)."""
+    import torch
+
+    from hairci_torch.cli import mainpretrain
+
+    cfg = DISTILL[mode]
+    B = cfg["batch"]
+    steps = DISTILL_EPOCHS * (128 // B)
+    argv = ["--mode", mode, "--model", "vit_b_16", "--size", str(SIZE),
+            "--dtype", "bfloat16", "--seed", "42", "--batch_size", str(B),
+            "--epochs", str(DISTILL_EPOCHS), "--num_workers", "8",
+            "--train_annotation", train["manifest"], "--img_dir", DATASET,
+            "--save_path", os.path.join(workdir, f"out_{mode}")] + cfg["flags"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    decodes = _decodes()
+    t0 = time.perf_counter()
+    trainer = mainpretrain.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    _check_decode_route(f"mainpretrain {mode}", _decodes() - decodes,
+                        DISTILL_EPOCHS * 128)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recipe, state = trainer.recipe, trainer.state
+    backbone = state.online.backbone
+    print(f"mainpretrain {mode} {recipe.backbone} ({backbone.embed_dim} x "
+          f"{len(backbone.blocks)}) {SIZE}px bf16 B={B}: {steps} steps over "
+          f"{DISTILL_EPOCHS} epochs in {seconds:.1f} s (model build and "
+          f"first-step warmup included); peak memory {peak:.2f} GiB; "
+          f"launches {launches}")
+    want = {name: 0 for name in launches}
+    want["bn_stats"] = cfg["bn_per_step"] * steps
+    if launches != want:
+        raise AssertionError(f"{mode} launches {launches}, expected {want}")
+    if (recipe.backbone, backbone.embed_dim, len(backbone.blocks)) != (
+            cfg["backbone"], cfg["width"], 12) or state.step != steps:
+        raise AssertionError(f"{mode}: {recipe.backbone} "
+                             f"{backbone.embed_dim} x {len(backbone.blocks)}"
+                             f", {state.step} steps")
+    if mode == "dinov2":
+        head = state.online.dino_head
+        blk = backbone.blocks[0]
+        if (head.prototypes.shape, head.fc1.out_features, recipe.n_local,
+                recipe.n_masked, blk.layer_scale) != (
+                    (65536, 256), 2048, 8, 80, True):
+            raise AssertionError(f"dinov2 head {tuple(head.prototypes.shape)}"
+                                 f", {recipe.n_local} locals, "
+                                 f"{recipe.n_masked} masked")
+        print(f"dinov2: LayerScale gamma of block 0 after {steps} steps: "
+              f"mean |gamma| {blk.ls1.gamma.abs().mean().item():.3g}; "
+              f"teacher temperature {recipe.teacher_temp(0)} -> "
+              f"{recipe.teacher_temp(steps - 1)}, momentum "
+              f"{recipe.momentum(0)} -> {recipe.momentum(steps - 1):.6f}")
+    else:
+        if (state.online.prototypes.shape, recipe.n_focal,
+                recipe.mask_ratio) != ((1024, 256), 10, 0.15):
+            raise AssertionError(f"MSN prototypes "
+                                 f"{tuple(state.online.prototypes.shape)}")
+    with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    with open(os.path.join(trainer.save_path, "training_log.txt")) as f:
+        log = f.read()
+    for m in metrics:
+        terms = ", ".join(f"{k} {m[k]:.6f}" for k in ("dino_loss", "ibot_loss",
+                                                      "koleo_loss") if k in m)
+        print(f"{mode} epoch {m['epoch']}: loss {m['loss']:.6f}"
+              + (f" ({terms})" if terms else "")
+              + f", {m['images_per_sec']:.1f} img/s (host clock, loader "
+              f"included)")
+    if [m["epoch"] for m in metrics] != list(range(DISTILL_EPOCHS)) or \
+            not all(math.isfinite(m["loss"]) for m in metrics) or \
+            log.count(": Loss = ") != DISTILL_EPOCHS:
+        raise AssertionError(f"{mode}: metrics {metrics}, log {log!r}")
+    ckpt = torch.load(os.path.join(trainer.save_path, "model_ckpt_latest"),
+                      map_location="cpu", weights_only=True)
+    keys = {"online", "ema", "optimizer", "step", "epoch"}
+    if mode == "dinov2":
+        keys.add("extra")
+        centres = ckpt["extra"]
+        if {k: tuple(v.shape) for k, v in centres.items()} != {
+                "dino_center": (1, 65536), "ibot_center": (1, 65536)} or \
+                not all(torch.isfinite(v).all() and v.abs().sum() > 0
+                        for v in centres.values()):
+            raise AssertionError(f"dinov2 centres {centres}")
+    if set(ckpt) != keys:
+        raise AssertionError(f"{mode} checkpoint keys {sorted(ckpt)}")
+    images, _ = next(iter(trainer.train_loader))
+    images = torch.from_numpy(images).cuda()
+    save_path = trainer.save_path
+    del trainer, recipe, state, backbone, ckpt
+    torch.cuda.empty_cache()
+
+    timed = {}
+    if mode == "dinov2":
+        timed["remat=True"] = _masked_step_times(_distill_recipe(mode, B),
+                                                 B, images)
+        _print_timed("dinov2 vit_small_patch16 remat=True", B,
+                     timed["remat=True"])
+        small = _masked_step_times(_distill_recipe(mode, B, remat=False),
+                                   B // 4, images[:B // 4], runs=3)
+        _print_timed("dinov2 vit_small_patch16 remat=False", B // 4, small)
+        extrapolated = small["peak_gib"] * 4
+        if extrapolated < FIT_GIB:
+            timed["remat=False"] = _masked_step_times(
+                _distill_recipe(mode, B, remat=False), B, images)
+            _print_timed("dinov2 vit_small_patch16 remat=False", B,
+                         timed["remat=False"])
+        else:
+            print(f"train_step dinov2 remat=False B={B}: does not fit "
+                  f"({small['peak_gib']:.2f} GiB at B={B // 4} scales to "
+                  f"{extrapolated:.1f} GiB)")
+            timed["remat=False"] = {"fits": False,
+                                    "extrapolated_peak_gib": extrapolated}
+    else:
+        timed[f"B={B}"] = _masked_step_times(_distill_recipe(mode, B), B,
+                                             images)
+        _print_timed("MSN vit_base_patch16", B, timed[f"B={B}"])
+        fits = [b for b in (128, 256)
+                if timed[f"B={B}"]["peak_gib"] * b / B < FIT_GIB]
+        if fits:
+            big = max(fits)
+            timed[f"B={big}"] = _masked_step_times(
+                _distill_recipe(mode, big), big, runs=3)
+            _print_timed("MSN vit_base_patch16", big, timed[f"B={big}"])
+        print(f"train_step MSN: the largest batch whose peak at B={B}, "
+              f"scaled by rows, stays below {FIT_GIB} GiB: "
+              f"{max(fits) if fits else B}")
+    profile = _device_breakdown(
+        _distill_recipe(mode, B), B, images, workdir, mode,
+        timed["remat=True" if mode == "dinov2" else f"B={B}"]["ms"])
+    knn = phase_knn_vit(workdir, {"save_path": save_path,
+                                  "manifest": train["manifest"]}, mode,
+                        cfg["self_retrieval"], cfg["width"])
+    if not cfg["self_retrieval"]:
+        _features_card_vs_cpu(mode, save_path,
+                              os.path.join(workdir, "test.csv"))
+    return {"launches": launches, "knn_launches": knn["launches"],
+            "timed": timed, "profile": profile, "peak_gib": peak,
             "seconds": seconds}
 
 
@@ -2820,6 +3120,73 @@ def phase_train_parity_masked(mode: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_train_parity_distill(mode: str) -> None:
+    """One f32 step of DINOv2 (ViT-S/16, 65,536 prototypes, 2 + 8 views) or
+    MSN (ViT-B/16, 2 + 10 views) at 224, B=8, on the card and on the CPU
+    from identical weights, views and mask: every loss term, and DINOv2's
+    centres. DINOv2's LayerScale gammas are drawn in [0.2, 1) first: at
+    their init of 1e-5 the cls tokens lie within rounding of one another and
+    KoLeo's nearest-neighbour distance is rounding noise on either device."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.aug.ops import to_device
+    from hairci_torch.models.masking import (
+        random_block_mask_from_scores,
+        random_token_mask_from_noise,
+    )
+    from hairci_torch.ssl import build_recipe
+
+    B = 8
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8))
+    rec = build_recipe(mode, img_size=SIZE, weight_decay=1e-4,
+                       dtype=torch.float32)
+    draws = rec.draw(torch.Generator().manual_seed(SEED), B, 256, 256)
+    views = rec.transform.apply(images, draws["views"])
+    if mode == "dinov2":
+        mask = random_block_mask_from_scores(draws["scores"], rec.grid,
+                                             rec.mask_ratio)
+    else:
+        mask = random_token_mask_from_noise(draws["noise"],
+                                            rec.mask_ratio)[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = rec.create_state(SEED, B, torch.device(dev))
+        if mode == "dinov2":
+            gen = torch.Generator().manual_seed(SEED)
+            with torch.no_grad():
+                for name, p in state.online.named_parameters():
+                    if name.endswith(".gamma"):
+                        gamma = torch.rand(p.shape, generator=gen) * 0.8 + 0.2
+                        p.copy_(gamma)
+                        state.ema.get_parameter(name).copy_(gamma)
+        t0 = time.perf_counter()
+        args = ([to_device(v, torch.device(dev)) for v in views],
+                mask.to(dev))
+        if mode == "dinov2":
+            args += (0.04, 0.992)
+        m = rec.step_on_views(state, *args)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.cpu() for k, v in (state.extra or {}).items()})
+        print(f"train parity {dev}: {mode} step {rec.backbone} {SIZE}px B={B}"
+              f" f32: {out[dev][0]} ({time.perf_counter() - t0:.1f} s)")
+        del state
+    rel = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-6)
+              for k, v in out["cpu"][0].items() if v != 0.0)
+    centre = max([(out["cuda"][1][k] - v).abs().max().item()
+                  / v.abs().max().item() for k, v in out["cpu"][1].items()]
+                 or [0.0])
+    print(f"train parity {mode}: largest relative loss-term difference "
+          f"{rel:.3g}" + (f", centres {centre:.3g} of their largest value"
+                          if mode == "dinov2" else ""))
+    if not (rel <= 1e-3 and centre <= 1e-3):
+        raise AssertionError(f"{mode}: card and CPU differ by {rel:.3g} "
+                             f"(losses), {centre:.3g} (centres)")
+    torch.cuda.empty_cache()
+
+
 def kernel_times(root: str) -> int:
     """``python3 chip_smoke.py --kernel-times [DIR]``: the card's and the
     host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step,
@@ -2928,6 +3295,8 @@ def main() -> int:
         evals = phase_eval_baselines(workdir, train, runs)
         masked = {mode: phase_train_masked(workdir, train, mode)
                   for mode in MASKED}
+        distill = {mode: phase_train_distill(workdir, train, mode)
+                   for mode in DISTILL}
     vit = train_vit["launches"]
     phase_probe_full(phase_knn_full())
     phase_embed(kern["conv3x3"]["times"])
@@ -2937,6 +3306,8 @@ def main() -> int:
         phase_train_parity_baseline(mode)
     for mode in MASKED:
         phase_train_parity_masked(mode)
+    for mode in DISTILL:
+        phase_train_parity_distill(mode)
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
     conv224 = kern["conv3x3"]["times224"][CLI_BATCH]
@@ -2957,6 +3328,7 @@ def main() -> int:
     # the SimCLR and SupCon training runs (phases 7d, 7e), conv3x3's in the
     # four evaluations of each one's checkpoint (phase 7f); bn_stats'
     # supcon_* numbers are the 20 BN inputs of one SupCon forward summed,
+    # its msn_* numbers the 4 BN inputs of one MSN step summed,
     # conv3x3's *_224 numbers the CIFAR-stem ResNet-18's layer1 conv at the
     # kNN CLI's batch, (48, 224, 224, 64) bf16. The top-k's *_d512 numbers
     # are the same at the face encoder's width, 103,945 x 512 f32 (phase 3),
@@ -2989,8 +3361,9 @@ def main() -> int:
              "ms_d512": d512[0], "host_ms_d512": d512[2],
              "plain_ms_d512": d512[1], "bound_ms_d512": d512[3][0],
              "bound_by_d512": d512[3][1]})
-    # the serving numbers of phases 4d and 4e, as printed there, in one
-    # line near the end of the output
+    # the card again, then the serving numbers of phases 4d and 4e, as
+    # printed there, in one line: the tail of the output holds both
+    print(_card_line())
     print(json.dumps({"serving": {
         "face": {m: {"embed_ms": face[m]["embed"]["ms"],
                      "embed_img_s": face[m]["embed"]["img_s"],
@@ -3033,7 +3406,10 @@ def main() -> int:
          "supcon_ms": bn["supcon_step"][0],
          "supcon_host_ms": bn["supcon_step"][2],
          "supcon_plain_ms": bn["supcon_step"][1],
-         "supcon_bound_ms": bn["supcon_bound"][0]},
+         "supcon_bound_ms": bn["supcon_bound"][0],
+         "msn_ms": bn["msn_step"][0], "msn_host_ms": bn["msn_step"][2],
+         "msn_plain_ms": bn["msn_step"][1],
+         "msn_bound_ms": bn["msn_bound"][0]},
         {"name": "conv3x3", "route": "cuda",
          "source": "hairci_torch/ops/csrc/conv3x3.cu",
          "replaces": "tools/fused_conv_bn_bench.py:47",
@@ -3050,14 +3426,16 @@ def main() -> int:
          "plain_ms_224": conv224["plain_ms"],
          "bound_ms_224": conv224["bound_ms"],
          "library_ms_224": conv224["library_ms"]}]
-    # the masked-image runs (phases 7g, 7h) launch none of the four
+    # the masked-image runs (phases 7g, 7h) and DINOv2 (7i) launch none of
+    # the four, MSN (7j) bn_stats 4 times a step: each run's launches, its
+    # training and its kNN evaluation together
+    runs_by_mode = {**masked, **distill}
     for row in rows:
         key = ("topk_gallery_search" if row["name"].startswith("topk")
                else row["name"])
-        for mode in MASKED:
-            row[f"launches_{mode.lower()}"] = (masked[mode]["launches"][key]
-                                               + masked[mode]["knn_launches"]
-                                               [key])
+        for mode, run in runs_by_mode.items():
+            row[f"launches_{mode.lower()}"] = (run["launches"][key]
+                                               + run["knn_launches"][key])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -1,7 +1,7 @@
 """Augmentation pipelines (port of part of ``hairci/aug/pipelines.py``):
 the SimCLR views, SupCon's two views, the single view of MAE and SimMIM,
-the positive transform and the hair masking of every SHAM step, and the
-deterministic kNN and test transforms.
+DINO's and MSN's multi-crop views, the positive transform and the hair
+masking of every SHAM step, and the deterministic kNN and test transforms.
 
 Each pipeline has a draw half (a dict of small CPU tensors from one CPU
 ``torch.Generator``) and an apply half that takes those draws, so a test can
@@ -126,6 +126,28 @@ def mae_transform(size: int = 224) -> MultiViewTransform:
 def simmim_transform(size: int = 224) -> MultiViewTransform:
     """SimMIM's view: the same as MAE's."""
     return mae_transform(size)
+
+
+def dino_transform(global_size: int = 224, local_size: int = 96,
+                   n_local: int = 6) -> MultiViewTransform:
+    """lightly DINOTransform: two global crops (the second solarized with
+    p = 0.2, blurred with p = 0.1) and ``n_local`` local crops."""
+    g1 = ViewConfig(size=global_size, crop_scale=(0.4, 1.0), cj_bright=0.4,
+                    cj_contrast=0.4, cj_sat=0.2, cj_hue=0.1, blur_p=1.0)
+    g2 = dataclasses.replace(g1, blur_p=0.1, solarize_p=0.2)
+    loc = dataclasses.replace(g1, size=local_size, crop_scale=(0.05, 0.4),
+                              blur_p=0.5)
+    return MultiViewTransform((g1, g2) + (loc,) * n_local)
+
+
+def msn_transform(size: int = 224, focal_size: int = 96,
+                  n_focal: int = 10) -> MultiViewTransform:
+    """lightly MSNTransform: two random views and ``n_focal`` small-crop
+    focal views."""
+    v = ViewConfig(size=size, crop_scale=(0.3, 1.0), cj_bright=0.8,
+                   cj_contrast=0.8, cj_sat=0.8, cj_hue=0.2, blur_p=0.5)
+    f = dataclasses.replace(v, size=focal_size, crop_scale=(0.05, 0.3))
+    return MultiViewTransform((v, v) + (f,) * n_focal)
 
 
 @dataclasses.dataclass(frozen=True)

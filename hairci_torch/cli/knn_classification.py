@@ -18,10 +18,11 @@ both loaders, L2-normalized -> one of four evaluations:
   * ``inter_intra_distance``: intra/inter-class variance of both splits ->
     ``variance_analysis_both.txt``.
 
-``--mode`` is SHAM, simclr, simclr_supcon, mae or simMIM; other modes exit
-with "not yet ported". mae and simMIM are ViT-B/16 whatever ``--model``
-says (resnet18, resnet50 and vit_b_16 all mean ``vit_base_patch16``: the
-JAX package's ``VIT_CONFIGS`` lacks ``vit_b_16``). ``--device`` defaults
+``--mode`` is SHAM, simclr, simclr_supcon, mae, simMIM, dinov2 or MSN;
+other modes exit with "not yet ported". mae and simMIM are ViT-B/16
+whatever ``--model`` says (resnet18, resnet50 and vit_b_16 all mean
+``vit_base_patch16``: the JAX package's ``VIT_CONFIGS`` lacks
+``vit_b_16``). ``--device`` defaults
 to cuda and raises without a card; ``--device cpu`` runs the kernels' plain
 twins. ``--model`` is resnet18,
 resnet50 or vit_b_16. ``--checkpoint_path`` takes a checkpoint of the
@@ -33,6 +34,13 @@ by ``models.convert.torchvision_vit_state_dict``), or SupCon. A reference
 JAX package's ``convert_sham2`` reads ResNets only). A reference MAE
 ``.pth`` (timm encoder + lightly decoder) and SimMIM ``.pth`` (torchvision
 ViT + linear decoder) are read by ``mae_state_dict`` / ``simmim_state_dict``.
+dinov2 is ViT-S/16 with LayerScale whatever ``--model`` says; its features
+are the student's. MSN is ViT-B/16 (resnet18, resnet50 and vit_b_16 all
+mean ``vit_base_patch16``; the JAX recipe raises ``KeyError`` on
+``vit_b_16``); its features are the EMA target branch's, which a Trainer
+checkpoint restores with the online one. A reference DINOv2 ``.pth``
+(student and teacher) and MSN ``.pth`` (anchor and target) are read by
+``dinov2_state_dict`` / ``msn_state_dict`` into the online and EMA branches.
 """
 
 from __future__ import annotations
@@ -47,8 +55,10 @@ from hairci_torch.data import DataLoader, load_manifest
 from hairci_torch.eval.classifier import Classifier
 from hairci_torch.eval.knn import full_f32
 from hairci_torch.models.convert import (
+    dinov2_state_dict,
     load_torch_state_dict,
     mae_state_dict,
+    msn_state_dict,
     sham2_state_dict,
     simmim_state_dict,
     supcon_state_dict,
@@ -95,7 +105,8 @@ def build_eval_parser() -> argparse.ArgumentParser:
     return p
 
 
-PORTED_MODES = ("SHAM", "simclr", "simclr_supcon", "mae", "simMIM")
+PORTED_MODES = ("SHAM", "simclr", "simclr_supcon", "mae", "simMIM",
+                "dinov2", "MSN")
 
 
 def recipe_for_eval(args):
@@ -109,14 +120,16 @@ def recipe_for_eval(args):
 
 def _reference_state_dict(args, path: str, model):
     """A reference-trained ``.pth`` in the key layout of ``model`` (the
-    recipe's online module)."""
+    recipe's online module): a state dict for both branches, or a pair
+    (online, EMA) for the recipes whose file holds both."""
     sd = load_torch_state_dict(path)
     if args.mode == "simclr_supcon":
         return supcon_state_dict(sd)
-    if args.mode in ("mae", "simMIM"):
-        reader = mae_state_dict if args.mode == "mae" else simmim_state_dict
+    readers = {"mae": mae_state_dict, "simMIM": simmim_state_dict,
+               "dinov2": dinov2_state_dict, "MSN": msn_state_dict}
+    if args.mode in readers:
         try:
-            return reader(sd, model)
+            return readers[args.mode](sd, model)
         except KeyError as e:
             raise SystemExit(f"{path}: not a reference {args.mode} .pth "
                              f"(missing {e})") from e
@@ -149,9 +162,10 @@ def load_state(recipe, args, device: torch.device):
     path = args.checkpoint_path
     if path and path.endswith((".pth", ".pt")):
         sd = _reference_state_dict(args, path, state.online)
-        state.online.load_state_dict(sd)
+        online_sd, ema_sd = sd if isinstance(sd, tuple) else (sd, sd)
+        state.online.load_state_dict(online_sd)
         if state.ema is not None:
-            state.ema.load_state_dict(sd)
+            state.ema.load_state_dict(ema_sd)
         logging.info("torch checkpoint loaded from %s", path)
     elif path:
         # a run dir or its checkpoints/ folder resolves to the newest one
@@ -160,7 +174,7 @@ def load_state(recipe, args, device: torch.device):
             if latest:
                 path = latest
                 break
-        ckpt_lib.restore_online_only(path, state)
+        ckpt_lib.restore_weights(path, state)
         logging.info("checkpoint loaded from %s", path)
     else:
         logging.warning("no --checkpoint_path; evaluating random init")

@@ -1,0 +1,153 @@
+"""Distillation losses (port of ``hairci/losses/distill.py``): BYOL's
+negative cosine, cosine distillation, DINO with its EMA centre, the iBOT
+patch loss, KoLeo and MSN.
+
+All are functions of their inputs; what the JAX package carries in the
+train state (the DINO and iBOT centres) comes back as a new tensor, without
+a gradient. The products over prototypes and KoLeo's similarities are f32,
+as ``preferred_element_type=f32`` makes them in JAX.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+
+def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps) over the last axis."""
+    n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x / torch.clamp(n, min=eps)
+
+
+def negative_cosine_similarity(p: torch.Tensor,
+                               z: torch.Tensor) -> torch.Tensor:
+    """BYOL / SimSiam: -cos(p, z) with no gradient through ``z``, mean over
+    the batch."""
+    return -torch.mean(torch.sum(_normalize(p) * _normalize(z.detach()),
+                                 dim=-1))
+
+
+def distillation_loss(z_student: torch.Tensor, z_teacher: torch.Tensor,
+                      reduction: str = "mean") -> torch.Tensor:
+    """1 - cos(student, teacher), reduced by ``mean``, ``sum`` or not."""
+    loss = 1.0 - torch.sum(_normalize(z_student) * _normalize(z_teacher),
+                           dim=-1)
+    if reduction == "mean":
+        return torch.mean(loss)
+    if reduction == "sum":
+        return torch.sum(loss)
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# DINO and iBOT
+# ---------------------------------------------------------------------------
+
+def dino_loss(teacher_out: Sequence[torch.Tensor],
+              student_out: Sequence[torch.Tensor], center: torch.Tensor,
+              teacher_temp: float = 0.04, student_temp: float = 0.1,
+              center_momentum: float = 0.9
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy of the centred, sharpened teacher distributions (the
+    global views) against the student's log-softmax (all views), skipping
+    the pairs of one view with itself. Returns (loss, new centre); the
+    centre moves toward the mean teacher logit of the batch."""
+    t_probs = [torch.softmax((t - center) / teacher_temp, dim=-1).detach()
+               for t in teacher_out]
+    s_logp = [torch.log_softmax(s / student_temp, dim=-1)
+              for s in student_out]
+    total, n_terms = 0.0, 0
+    for it, tp in enumerate(t_probs):
+        for is_, sl in enumerate(s_logp):
+            if it == is_:
+                continue
+            total = total + torch.mean(-torch.sum(tp * sl, dim=-1))
+            n_terms += 1
+    loss = total / max(n_terms, 1)
+    batch_center = torch.mean(torch.cat(list(teacher_out), dim=0), dim=0,
+                              keepdim=True)
+    new_center = center * center_momentum + batch_center * (
+        1 - center_momentum)
+    return loss, new_center.detach()
+
+
+def ibot_patch_loss(teacher_patch_out: torch.Tensor,
+                    student_patch_out: torch.Tensor, mask: torch.Tensor,
+                    center: torch.Tensor, teacher_temp: float = 0.04,
+                    student_temp: float = 0.1, center_momentum: float = 0.9
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """iBOT's masked-patch cross-entropy (lightly ``IBOTPatchLoss``) over
+    (B, N, K) logits where ``mask`` (B, N) is set; the centre moves toward
+    the mean teacher logit of the masked patches. Returns (loss, new
+    centre)."""
+    tp = torch.softmax((teacher_patch_out - center) / teacher_temp,
+                       dim=-1).detach()
+    sl = torch.log_softmax(student_patch_out / student_temp, dim=-1)
+    ce = -torch.sum(tp * sl, dim=-1)
+    m = mask.to(ce.dtype)
+    count = torch.clamp(torch.sum(m), min=1.0)
+    loss = torch.sum(ce * m) / count
+    batch_center = (torch.sum(teacher_patch_out * m[..., None], dim=(0, 1))
+                    / count)[None]
+    new_center = center * center_momentum + batch_center * (
+        1 - center_momentum)
+    return loss, new_center.detach()
+
+
+def koleo_loss(z: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """KoLeo (DINOv2): -mean(log(distance to the nearest other row)) of the
+    normalised rows, as -0.5 * mean(log(d^2 + eps)), which stays finite
+    where two rows coincide (the square root's gradient would not)."""
+    z = _normalize(z, eps)
+    sim = torch.matmul(z.float(), z.float().T)
+    sim = sim - 2.0 * torch.eye(z.shape[0], dtype=sim.dtype,
+                                device=sim.device)   # exclude self
+    nn_sim = torch.max(sim, dim=1).values
+    d2 = torch.clamp(2.0 - 2.0 * nn_sim, min=0.0)
+    return -0.5 * torch.mean(torch.log(d2 + eps))
+
+
+# ---------------------------------------------------------------------------
+# MSN
+# ---------------------------------------------------------------------------
+
+def msn_loss(anchors: torch.Tensor, targets: torch.Tensor,
+             prototypes: torch.Tensor, temperature: float = 0.1,
+             sinkhorn_iterations: int = 3,
+             me_max_weight: float = 1.0) -> torch.Tensor:
+    """lightly ``MSNLoss``: cross-entropy of the anchors' prototype
+    probabilities against the Sinkhorn-balanced target probabilities (no
+    gradient through ``targets``), plus the mean-entropy maximisation term.
+    ``anchors`` holds A = T * views rows, view-major."""
+    a = _normalize(anchors)
+    t = _normalize(targets.detach())
+    p = _normalize(prototypes)
+    a_probs = torch.softmax(torch.matmul(a.float(), p.float().T)
+                            / temperature, dim=-1)
+    t_probs = torch.softmax(torch.matmul(t.float(), p.float().T)
+                            / temperature, dim=-1)
+    t_probs = _sinkhorn(t_probs, sinkhorn_iterations)
+    t_probs = t_probs.repeat(anchors.shape[0] // targets.shape[0], 1)
+    ce = -torch.mean(torch.sum(t_probs * torch.log(a_probs + 1e-12), dim=-1))
+    mean_probs = torch.mean(a_probs, dim=0)
+    me_max = torch.sum(mean_probs * torch.log(mean_probs + 1e-12)) \
+        + math.log(a_probs.shape[1])
+    return ce + me_max_weight * me_max
+
+
+def _sinkhorn(probs: torch.Tensor, iterations: int) -> torch.Tensor:
+    """Sinkhorn-Knopp over (rows = samples, cols = prototypes): ``iterations``
+    row and column normalisations of the transposed matrix (the JAX
+    package's ``lax.scan``), without a gradient."""
+    if iterations == 0:
+        return probs
+    q = probs.detach().T
+    q = q / torch.sum(q)
+    K, T = q.shape
+    for _ in range(iterations):
+        q = q / torch.clamp(torch.sum(q, dim=1, keepdim=True), min=1e-12) / K
+        q = q / torch.clamp(torch.sum(q, dim=0, keepdim=True), min=1e-12) / T
+    return (q * T).T

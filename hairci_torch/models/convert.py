@@ -32,11 +32,22 @@ does. ``face_vit_state_dict_from_jax`` maps a JAX ``ViTFace`` and
 ``decoder.``) as ``convert_mae`` does, and ``simmim_state_dict`` a reference
 SimMIM ``.pth`` (a torchvision ViT under ``backbone.vit.``, a linear
 ``decoder``) as ``convert_simmim`` does.
+
+``dinov2_state_dict_from_jax`` / ``msn_state_dict_from_jax`` map one branch
+of a JAX ``DINOv2Module`` / ``MSNModule`` (params, and MSN's batch stats):
+the online branch from ``params``, the EMA (teacher, target) from
+``ema_params`` the same way. ``dinov2_state_dict`` reads a reference DINOv2
+``.pth`` (timm ViTs with LayerScale under ``student_backbone.vit.`` /
+``teacher_backbone.vit.``, lightly's DINO heads with a weight-normalised
+``last_layer``) as ``convert_dinov2`` does, and ``msn_state_dict`` a
+reference MSN ``.pth`` (torchvision ViTs under ``anchor_backbone.vit.`` /
+``backbone.vit.``, lightly's MSN heads) as ``convert_msn`` does; each
+returns the online and the EMA branch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +89,9 @@ def _block_from_jax(sd: Dict[str, torch.Tensor], t: str,
     for mod, dense in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
                        ("mlp", "fc2")):
         _put_dense(sd, f"{t}.{mod}.{dense}", bp[mod][dense])
+    for ls in ("ls1", "ls2"):
+        if ls in bp:
+            sd[f"{t}.{ls}.gamma"] = _t(bp[ls]["gamma"])
 
 
 def _put_norm(sd: Dict[str, torch.Tensor], name: str, p: Mapping) -> None:
@@ -256,9 +270,10 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 def timm_vit_state_dict(sd: Mapping[str, torch.Tensor],
                         model: VisionTransformer) -> Dict[str, torch.Tensor]:
     """A timm-layout ViT state dict completed to ``model``'s key set: every
-    block must be present; a missing mask token becomes zeros and a missing
-    ``norm``/``fc_norm`` the identity, as ``convert_vit`` fills them; keys the
-    model lacks (heads, LayerScale) are dropped."""
+    block must be present, with its LayerScale ``ls1``/``ls2.gamma`` where
+    ``model`` has LayerScale; a missing mask token becomes zeros and a
+    missing ``norm``/``fc_norm`` the identity, as ``convert_vit`` fills them;
+    keys the model lacks (heads, LayerScale) are dropped."""
     d = model.embed_dim
     out = {
         "cls_token": sd["cls_token"].reshape(1, 1, d),
@@ -274,6 +289,9 @@ def timm_vit_state_dict(sd: Mapping[str, torch.Tensor],
                      "mlp.fc2"):
             for p in ("weight", "bias"):
                 out[f"{t}.{name}.{p}"] = sd[f"{t}.{name}.{p}"]
+        if model.blocks[i].layer_scale:
+            for ls in ("ls1", "ls2"):
+                out[f"{t}.{ls}.gamma"] = sd[f"{t}.{ls}.gamma"]
     for n in ("norm", "fc_norm") if model.global_pool else ("norm",):
         out[f"{n}.weight"] = sd.get(f"{n}.weight", torch.ones(d))
         out[f"{n}.bias"] = sd.get(f"{n}.bias", torch.zeros(d))
@@ -482,3 +500,100 @@ def simmim_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
     out["decoder.weight"] = sd["decoder.weight"]
     out["decoder.bias"] = sd["decoder.bias"]
     return out
+
+
+# ---------------------------------------------------------------------------
+# DINOv2 and MSN
+# ---------------------------------------------------------------------------
+
+def dinov2_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """One branch of a JAX ``DINOv2Module`` ({backbone, dino_head}) -> the
+    port's ``DINOv2Module`` state dict (load with ``strict=True``)."""
+    sd = _backbone_from_jax(params["backbone"], {}, "vit", "backbone.")
+    head = params["dino_head"]
+    for fc in ("fc1", "fc2", "fc3"):
+        _put_dense(sd, f"dino_head.{fc}", head[fc])
+    sd["dino_head.prototypes"] = _t(head["prototypes"])
+    return sd
+
+
+def msn_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                            ) -> Dict[str, torch.Tensor]:
+    """One branch of a JAX ``MSNModule`` (params, batch_stats) -> the port's
+    ``MSNModule`` state dict (load with ``strict=True``): the head's
+    dense0 / bn0 / dense1 / bn1 / dense2 as ``projection_head.layers.{0,1,3,
+    4,6}``."""
+    sd = _backbone_from_jax(params["backbone"], {}, "vit", "backbone.")
+    hp, hs = params["projection_head"], batch_stats["projection_head"]
+    for i, (lin, bn) in enumerate(((0, 1), (3, 4), (6, None))):
+        dense = hp[f"dense{i}"]
+        sd[f"projection_head.layers.{lin}.weight"] = _t(
+            np.asarray(dense["kernel"]).T)
+        if "bias" in dense:
+            sd[f"projection_head.layers.{lin}.bias"] = _t(dense["bias"])
+        if bn is not None:
+            _put_bn(sd, f"projection_head.layers.{bn}", hp[f"bn{i}"],
+                    hs[f"bn{i}"])
+    sd["prototypes"] = _t(params["prototypes"])
+    return sd
+
+
+def _weight_norm_v(sd: Mapping[str, torch.Tensor],
+                   prefix: str) -> torch.Tensor:
+    """The direction matrix of a weight-normalised Linear, in any of its
+    three layouts: ``weight_v`` (``torch.nn.utils.weight_norm``),
+    ``parametrizations.weight.original1`` (its parametrization), or a plain
+    ``weight``. The gain is dropped: the head normalises the rows."""
+    for key in (f"{prefix}.weight_v",
+                f"{prefix}.parametrizations.weight.original1",
+                f"{prefix}.weight"):
+        if key in sd:
+            return sd[key]
+    raise KeyError(f"no weight-norm weight under {prefix}")
+
+
+def dinov2_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
+                      ) -> Tuple[Dict[str, torch.Tensor],
+                                 Dict[str, torch.Tensor]]:
+    """A reference DINOv2 checkpoint -> (student, teacher) state dicts in the
+    key set of ``model`` (the port's ``DINOv2Module``), as ``convert_dinov2``
+    reads it: each timm ViT with its LayerScale (a missing mask token
+    becomes zeros), each head's ``layers.{0,2,4}`` as ``fc1..fc3`` and
+    ``last_layer``'s direction as ``prototypes``. Raises ``KeyError`` where a
+    tensor is missing."""
+    def branch(bprefix: str, hprefix: str) -> Dict[str, torch.Tensor]:
+        out = {f"backbone.{k}": v for k, v in timm_vit_state_dict(
+            _sub(sd, bprefix), model.backbone).items()}
+        for fc, i in (("fc1", 0), ("fc2", 2), ("fc3", 4)):
+            for p in ("weight", "bias"):
+                out[f"dino_head.{fc}.{p}"] = sd[f"{hprefix}layers.{i}.{p}"]
+        out["dino_head.prototypes"] = _weight_norm_v(
+            sd, f"{hprefix}last_layer")
+        return out
+
+    return (branch("student_backbone.vit.", "student_head.dino_head."),
+            branch("teacher_backbone.vit.", "teacher_head.dino_head."))
+
+
+def msn_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
+                   ) -> Tuple[Dict[str, torch.Tensor],
+                              Dict[str, torch.Tensor]]:
+    """A reference MSN checkpoint -> (anchor, target) state dicts in the key
+    set of ``model`` (the port's ``MSNModule``), as ``convert_msn`` reads
+    it: the anchor branch from ``anchor_backbone.vit.`` (a torchvision ViT)
+    and ``anchor_projection_head.``, the target from ``backbone.vit.`` and
+    ``projection_head.`` (lightly's MLP: linears ``layers.{0,3,6}``, BNs
+    ``layers.{1,4}`` with their running statistics), ``prototypes`` in both.
+    Raises ``KeyError`` where a tensor is missing."""
+    head_keys = list(model.projection_head.state_dict())
+
+    def branch(bprefix: str, hprefix: str) -> Dict[str, torch.Tensor]:
+        out = {f"backbone.{k}": v for k, v in torchvision_vit_state_dict(
+            _sub(sd, bprefix), model.backbone).items()}
+        for key in head_keys:
+            out[f"projection_head.{key}"] = sd[f"{hprefix}{key}"]
+        out["prototypes"] = sd["prototypes"]
+        return out
+
+    return (branch("anchor_backbone.vit.", "anchor_projection_head."),
+            branch("backbone.vit.", "projection_head."))

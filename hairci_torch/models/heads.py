@@ -1,7 +1,8 @@
-"""Projection heads (port of ``hairci/models/heads.py``): ``MLPHead``, the
-SimCLR projection head with its widths by backbone (``_PROJ_DIMS`` of
-``hairci/ssl/simclr.py``), and SupCon's ``mlp`` and ``linear`` heads
-(``hairci/ssl/supcon.py:SupConModule``)."""
+"""Projection heads (port of ``hairci/models/heads.py``): ``MLPHead`` (ReLU,
+or exact-erf GELU as in lightly's MSN head), the SimCLR projection head
+with its widths by backbone (``_PROJ_DIMS`` of ``hairci/ssl/simclr.py``),
+SupCon's ``mlp`` and ``linear`` heads (``hairci/ssl/supcon.py:SupConModule``)
+and the DINO head over weight-normalised prototypes (``DINOHead``)."""
 
 from __future__ import annotations
 
@@ -33,16 +34,21 @@ class Linear(nn.Linear):
 
 
 class MLPHead(nn.Module):
-    """Stack of (Dense [BN] [ReLU]) blocks, ``layers`` = (out_dim, use_bn,
+    """Stack of (Dense [BN] [act]) blocks, ``layers`` = (out_dim, use_bn,
     use_act) each, in ``self.layers`` as the lightly head orders them
-    (Linear, BN, ReLU, ...): the SimCLR head's keys are
-    ``layers.{0,1,3,4}``, as in ``export_sham2``. Its BN is the port's
-    ``BatchNorm`` on the (B, D) input, so the stats kernel covers it too, in
-    the centred form of the ``flax.linen.BatchNorm`` the JAX head uses."""
+    (Linear, BN, act, ...): the SimCLR head's keys are
+    ``layers.{0,1,3,4}``, as in ``export_sham2``, and the MSN head's
+    ``layers.{0,1,3,4,6}``. ``act`` is ``relu`` or ``gelu`` (exact erf, in
+    the module dtype, as ``nn.gelu(approximate=False)``). Its BN is the
+    port's ``BatchNorm`` on the (B, D) input, so the stats kernel covers it
+    too, in the centred form of the ``flax.linen.BatchNorm`` the JAX head
+    uses."""
 
     def __init__(self, in_dim: int, layers: Sequence[Tuple[int, bool, bool]],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, act: str = "relu"):
         super().__init__()
+        if act not in ("relu", "gelu"):
+            raise ValueError(f"unknown activation {act!r}")
         self.dtype = dtype
         mods = []
         for dim, use_bn, use_act in layers:
@@ -50,7 +56,7 @@ class MLPHead(nn.Module):
             if use_bn:
                 mods.append(BatchNorm(dim, dtype=dtype, centered=True))
             if use_act:
-                mods.append(nn.ReLU())
+                mods.append(nn.ReLU() if act == "relu" else nn.GELU())
             in_dim = dim
         self.layers = nn.Sequential(*mods)
 
@@ -90,3 +96,32 @@ def supcon_head(in_dim: int, head: str = "mlp", feat_dim: int = 128,
                              nn.ReLU(),
                              Linear(in_dim, feat_dim, bias=True, dtype=dtype))
     raise ValueError(f"unknown SupCon head {head!r}")
+
+
+class DINOHead(nn.Module):
+    """MLP -> L2-normalised bottleneck -> weight-normalised prototypes
+    (``hairci/models/heads.py:DINOHead``): fc1, fc2 (2048 wide, exact GELU
+    after each) and fc3 (256) in ``dtype``, then in f32 the bottleneck over
+    its norm + 1e-12 against the rows of ``prototypes`` (out_dim, 256) over
+    theirs. Takes (B, D) cls tokens or (B, N, D) patch tokens; returns f32
+    logits over ``out_dim`` prototypes."""
+
+    hidden, bottleneck = 2048, 256
+
+    def __init__(self, in_dim: int, out_dim: int = 65536,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = Linear(in_dim, self.hidden, bias=True, dtype=dtype)
+        self.fc2 = Linear(self.hidden, self.hidden, bias=True, dtype=dtype)
+        self.fc3 = Linear(self.hidden, self.bottleneck, bias=True, dtype=dtype)
+        self.prototypes = nn.Parameter(
+            torch.randn(out_dim, self.bottleneck) * 0.02)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.gelu(self.fc1(x.to(self.dtype)))
+        x = self.fc3(F.gelu(self.fc2(x))).float()
+        x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+        w = self.prototypes.float()
+        w = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-12)
+        return torch.matmul(x, w.T)

@@ -14,7 +14,9 @@ Numerics follow the Flax modules:
     per-call cast is then a no-op.
   * LayerNorm is pinned to f32 (params and output), eps 1e-6, with the
     variance taken as E[x^2] - E[x]^2 like Flax.
-  * The residual stream is in the module dtype.
+  * The residual stream is in the module dtype; with LayerScale
+    (``init_values``, DINOv2) it is f32 from block 0 on, as in JAX, where
+    the f32 ``gamma`` promotes each branch before the residual add.
   * GELU is exact erf in f32 and the tanh approximation in bf16.
   * Attention is two matmuls and a softmax: scores come out in bf16 when the
     module runs in bf16 and are scaled in bf16; softmax runs in f32 and is
@@ -38,7 +40,9 @@ tokens after the table is added and before ``cls`` is prepended (MAE). An
 input of another resolution gets the position table resized bilinearly
 (``resize_pos_embed``, antialiased when it shrinks, as ``jax.image.resize``).
 
-Not ported yet: LayerScale and the cross blocks.
+LayerScale (``init_values``) holds timm's ``blocks.N.ls1.gamma`` /
+``ls2.gamma``, the keys ``export_vit`` writes. Not ported yet: the cross
+blocks.
 """
 
 from __future__ import annotations
@@ -188,18 +192,38 @@ class Attention(nn.Module):
                       self.dtype)
 
 
+class LayerScale(nn.Module):
+    """x * gamma with an f32 ``gamma`` (the reference pins LayerScale to
+    f32), so a bf16 branch comes out in f32."""
+
+    def __init__(self, dim: int, init_values: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma
+
+
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
-                 remat_core: bool = False):
+                 remat_core: bool = False,
+                 init_values: Optional[float] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, dtype, remat_core)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, 4 * dim, dtype)
+        if init_values is not None:
+            self.ls1 = LayerScale(dim, init_values)
+            self.ls2 = LayerScale(dim, init_values)
+        self.layer_scale = init_values is not None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        if not self.layer_scale:
+            x = x + self.attn(self.norm1(x))
+            return x + self.mlp(self.norm2(x))
+        x = x + self.ls1(self.attn(self.norm1(x)))
+        return x + self.ls2(self.mlp(self.norm2(x)))
 
 
 class PatchEmbed(nn.Module):
@@ -249,9 +273,10 @@ class VisionTransformer(nn.Module):
 
     Parameters are drawn from ``generator`` (lecun-normal dense and conv
     kernels as in Flax, zero biases, N(0, 0.02) cls/mask tokens, fixed
-    sin-cos position table) in f32 on the CPU, then the dense and conv
-    weights are cast to ``param_dtype`` (default ``dtype``); so one seed
-    gives the same weights in every dtype and on every device.
+    sin-cos position table, LayerScale ``gamma`` = ``init_values``) in f32
+    on the CPU, then the dense and conv weights are cast to ``param_dtype``
+    (default ``dtype``); so one seed gives the same weights in every dtype
+    and on every device.
     """
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 768,
@@ -260,7 +285,7 @@ class VisionTransformer(nn.Module):
                  global_pool: bool = False,
                  generator: Optional[torch.Generator] = None,
                  param_dtype: Optional[torch.dtype] = None,
-                 remat: Any = False):
+                 remat: Any = False, init_values: Optional[float] = None):
         super().__init__()
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got "
@@ -283,7 +308,8 @@ class VisionTransformer(nn.Module):
             requires_grad=False)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, dtype, remat == "selective")
+            Block(embed_dim, num_heads, dtype, remat == "selective",
+                  init_values)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim)
         if global_pool:

@@ -1,9 +1,11 @@
 """Checkpoints (port of ``hairci/train/checkpoint.py``).
 
 A checkpoint is one ``torch.save`` file holding the online module's state,
-the optimizer, the step and the epoch, and the EMA module's state and the
-mined-negative cache where the state has them (SHAM): everything resume
-needs. A SHAM checkpoint keeps the key set it always had. The cadence
+the optimizer, the step and the epoch, and the EMA module's state, the
+mined-negative cache and the ``extra`` tensors where the state has them
+(SHAM: EMA and cache; DINOv2: EMA and centres; MSN: EMA): everything
+resume needs. SHAM, SimCLR, SupCon, MAE and SimMIM checkpoints keep the key
+sets they always had. The cadence
 follows the JAX engine: ``model_ckpt_<epoch>`` every 50 epochs plus
 ``model_ckpt_latest`` each epoch. JAX's Orbax directories cannot be read here (no JAX).
 """
@@ -31,6 +33,7 @@ def save_checkpoint(save_path: str, name: str, state: TrainState,
             "ema": None if state.ema is None else state.ema.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "neg_indices": state.neg_indices,
+            "extra": state.extra,
             "step": state.step,
             "epoch": epoch}
     torch.save({k: v for k, v in ckpt.items() if v is not None}, tmp)
@@ -48,16 +51,24 @@ def restore_checkpoint(path: str, state: TrainState) -> int:
     state.optimizer.load_state_dict(ckpt["optimizer"])
     if state.neg_indices is not None:
         state.neg_indices.copy_(ckpt["neg_indices"])
+    if state.extra is not None:
+        for key in state.extra:
+            state.extra[key] = ckpt["extra"][key]
     state.step = int(ckpt["step"])
     return int(ckpt["epoch"])
 
 
-def restore_online_only(path: str, state: TrainState) -> None:
-    """Load only the online model of a Trainer checkpoint (evaluation): the
-    EMA teacher, the optimizer and the negative cache stay as they are."""
+def restore_weights(path: str, state: TrainState) -> None:
+    """Load the models of a Trainer checkpoint (evaluation): the online
+    module, and the EMA where both the state and the file have one (MSN's
+    features come from it), as the JAX package's ``restore_params_only``
+    restores params and EMA params; the optimizer, the negative cache and
+    the ``extra`` tensors stay as they are."""
     device = next(state.online.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
     state.online.load_state_dict(ckpt["online"])
+    if state.ema is not None and "ema" in ckpt:
+        state.ema.load_state_dict(ckpt["ema"])
 
 
 def get_latest_checkpoint(folder: str) -> Optional[str]:

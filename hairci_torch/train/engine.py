@@ -4,13 +4,15 @@ The epoch loop feeds each uint8 batch and its labels to the card through
 pinned memory and keeps the step metrics on the card until the epoch ends:
 one host sync per epoch. SHAM is staged on the host (warmup -> mine ->
 mined, with k adapted from the previous epoch's violations at the
-boundary); every other recipe takes the plain step, with the batch's
-labels. It writes the JAX engine's ``training_log.txt`` line (SHAM's, or
-``Loss =`` for every other mode) and ``metrics.jsonl``, and a checkpoint
-every 50 epochs plus ``model_ckpt_latest``; resume restores SHAM's EMA and
-negative cache too. The JAX engine's dinov2 branch (per-step teacher
-temperature and momentum) and its per-epoch momentum branch (BYOL, DenseCL,
-SiameseIM) come with the recipes that need them.
+boundary); DINOv2 takes its per-step teacher temperature and momentum at
+the global step ``epoch * len(loader) + batch_id``; every other recipe
+takes the plain step, with the batch's labels. It writes the JAX engine's
+``training_log.txt`` line (SHAM's, or ``Loss =`` for every other mode) and
+``metrics.jsonl`` (every metric of the step: DINOv2's ``dino_loss``,
+``ibot_loss`` and ``koleo_loss`` too), and a checkpoint every 50 epochs
+plus ``model_ckpt_latest``; resume restores the EMA, SHAM's negative cache
+and DINOv2's centres too. The JAX engine's per-epoch momentum branch (BYOL,
+DenseCL, SiameseIM) comes with the recipes that need it.
 """
 
 from __future__ import annotations
@@ -120,6 +122,12 @@ class Trainer:
                     metrics = self.recipe.train_step(
                         state, x, gen, stage=stage, batch_id=batch_id,
                         k=total_k)
+                elif args.mode == "dinov2":
+                    gstep = epoch * len(self.train_loader) + batch_id
+                    metrics = self.recipe.train_step(
+                        state, x, gen,
+                        teacher_temp=self.recipe.teacher_temp(gstep),
+                        momentum=self.recipe.momentum(gstep))
                 else:
                     y = to_device(torch.from_numpy(
                         np.asarray(labels, np.int64)), self.device)

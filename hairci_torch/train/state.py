@@ -1,8 +1,9 @@
 """Train state (port of ``hairci/train/state.py``).
 
 The JAX pytree becomes one mutable object: the online module, the
-optimizer, the step count and, for SHAM only, the EMA teacher copy and the
-mined-negative cache (SimCLR and SupCon have neither).
+optimizer, the step count and, where the recipe has them, the EMA teacher
+copy (SHAM, DINOv2, MSN), the mined-negative cache (SHAM) and ``extra``
+tensors (DINOv2's DINO and iBOT centres).
 The port updates it in place (the JAX step returns a new state), which keeps
 one copy of the weights and optimizer moments on the card.
 """
@@ -10,7 +11,7 @@ one copy of the weights and optimizer moments on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -24,6 +25,8 @@ class TrainState:
     # staged hard-negative cache: (num_batches, B) neighbour indices
     neg_indices: Optional[torch.Tensor] = None
     step: int = 0
+    # recipe-specific tensors carried from step to step (DINOv2's centres)
+    extra: Optional[Dict[str, torch.Tensor]] = None
 
 
 @torch.no_grad()

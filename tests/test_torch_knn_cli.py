@@ -185,7 +185,7 @@ def test_cli_refuses_what_is_not_ported(slice_, tmp_path):
         out[out.index(flag) + 1] = value
         return out
 
-    for argv in (swap("--mode", "MSN"), swap("--mode", "dinov2")):
+    for argv in (swap("--mode", "DenseCL"), swap("--mode", "siaMIM")):
         with pytest.raises(SystemExit, match="not yet ported"):
             cli.main(argv)
     # a reference .pth of SHAM on a ViT: no converter in either package

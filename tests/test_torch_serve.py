@@ -252,7 +252,10 @@ def test_port_pulls_in_no_jax_at_runtime():
             "'hairci_torch.preprocess.face_toolkit', "
             "'hairci_torch.serve.demo', "
             "'hairci_torch.serve.visualizer.server', "
-            "'hairci_torch.cli.face_retrieval'} <= set(mods), mods\n"
+            "'hairci_torch.cli.face_retrieval', "
+            "'hairci_torch.ssl.dinov2', 'hairci_torch.ssl.msn', "
+            "'hairci_torch.losses.distill', "
+            "'hairci_torch.train.schedules'} <= set(mods), mods\n"
             "for m in mods + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

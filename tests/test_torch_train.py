@@ -170,7 +170,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     csv, img_dir = _manifest(tmp_path)
     base = ["--device", "cpu", "--train_annotation", str(csv), "--img_dir",
             str(img_dir), "--save_path", str(tmp_path)]
-    for mode in ("dinov2", "BYOL"):
+    for mode in ("BYOL", "DenseCL"):
         with pytest.raises(SystemExit, match="not yet ported"):
             mainpretrain.main(base + ["--mode", mode])
 
