@@ -36,9 +36,12 @@ Phases, in order; any failure raises and exits non-zero:
                 strided SimCLR view, and timed on both routes. conv3x3 bf16
                 also at (64 / 48 / 47, 224, 224, 64), the CIFAR-stem
                 ResNet-18's layer1, and bn_stats at the 20 BN inputs of one
-                SupCon forward (layer1 at 128 x 224 x 224 rows) and at the 4
+                SupCon forward (layer1 at 128 x 224 x 224 rows), at the 4
                 of one MSN step (the head's (64, 2048) and (640, 2048)
-                bf16, twice each).
+                bf16, twice each), at BYOL's two head inputs (128 and 96 x
+                4096 bf16) and the ResNet-50 trunk's inputs at 96 and 48
+                rows; conv3x3 also at (128 / 96, 56, 56, 64), BYOL's
+                momentum forward.
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
@@ -158,6 +161,28 @@ Phases, in order; any failure raises and exits non-zero:
                 scaled peak fits. Then knn_classification.main --mode MSN:
                 the target branch's features, no launch, self-retrieval at
                 k=1.
+  7k. train-byol -- BYOL (ResNet-50 at full width, the 2048 -> 4096 -> 256
+                projection and 256 -> 4096 -> 256 prediction heads, the
+                momentum branch its EMA at the per-epoch cosine momentum)
+                through mainpretrain.main at 224, bf16, seeded random
+                weights, B=48 for 2 epochs on phase 6's manifest (the last
+                batch of each padded): exactly 55 bn_stats (the trunk's 53
+                over both views and the heads' two 4096-wide BNs) and 3
+                conv3x3 launches (the momentum branch's forward without
+                gradient) a step, no rotate, no top-k; the heads' widths; a
+                finite "Loss =" line each epoch; the checkpoint's keys. Then
+                the step timed by StepTimer at B=64 and at the config's B=256
+                where the B=64 peak scaled by rows fits (peak memory, GFLOP
+                an image by FlopCounterMode), and one step at B=64 under
+                torch.profiler.
+  7l. train-densecl -- DenseCL (ResNet-50 kept spatial, 2048 -> 2048 -> 512
+                global and local heads, banks of 4096 x 512) the same way:
+                53 bn_stats and 3 conv3x3 launches a step; the loss and its
+                global and local terms each epoch; both banks and pointers
+                in the checkpoint (6 x 48 rows filled). Timed the same way.
+                Then knn_classification.main --mode DenseCL --model resnet50
+                on the checkpoint: 3 conv3x3 launches a forward, no other;
+                unit-norm 2048-d features, held f32 card against CPU.
   8. knn at full size -- ``knn_predict_multi`` on seeded clustered features,
                 103,945 x 2048 gallery, 61 classes, 4096 queries, the seven
                 ks; 512 queries against the port on the CPU; exact ties by
@@ -175,8 +200,9 @@ Phases, in order; any failure raises and exits non-zero:
                 then the same for ViT-B/16 with the S2R2 term, one SimCLR
                 step (ResNet-50), one SupCon step (CIFAR-stem ResNet-18), and
                 one MAE and one SimMIM step (ViT-B/16) from identical
-                weights, view and mask, and one DINOv2 and one MSN step at
-                full width (every loss term, and DINOv2's centres).
+                weights, view and mask, one DINOv2 and one MSN step at
+                full width (every loss term, and DINOv2's centres), and one
+                BYOL and one DenseCL step (ResNet-50, every loss term).
 The last four lines are the card's name and power limit again, the serving
 numbers of phases 4d and 4e as one JSON object, the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -916,8 +942,42 @@ def phase_bn_stats() -> dict:
           f"{TRAIN_BATCH} + {10 * TRAIN_BATCH} rows): kernel {msn_k:.4f} ms "
           f"on the card (bound {msn_bound[0]:.5f} by {msn_bound[1]}), "
           f"{msn_h:.4f} ms on the host; twin {msn_t:.4f} ms")
+    # BYOL's heads: the projection and the prediction head's 4096-wide BNs
+    # over both views (2B rows), bf16, timed at B=64 and checked at the CLI
+    # run's B=48; then the ResNet-50 trunk's BN inputs at the rows the BYOL
+    # (2 x 48) and DenseCL (48) CLI runs give them, checked
+    byol_k = byol_h = byol_t = 0.0
+    for m in (2 * TRAIN_BATCH, 2 * CLI_BATCH):
+        x = (torch.randn(m, 4096, device=dev, generator=gen) * 2
+             + 1).bfloat16()
+        err = max(err, _check_bn(x, 1e-4, 1e-3))
+        if m != 2 * TRAIN_BATCH:
+            continue
+        kern, host = _kernel_times(lambda: bn_stats(x))
+        twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
+        byol_k, byol_h, byol_t = 2 * kern, 2 * host, 2 * twin
+        print(f"bn_stats ({m}, 4096) bf16 x2 per BYOL step, {blocks(x)}: "
+              f"kernel {kern:.4f} ms on the card, {host:.4f} ms on the host; "
+              f"twin {twin:.4f} ms")
+    values = 2 * 2 * TRAIN_BATCH * 4096
+    byol_bound = _bound(2 * values + 2 * 8 * 4096, 3.0 * values, "f32")
+    print(f"bn_stats, the 2 head BNs of one BYOL step ({2 * TRAIN_BATCH} "
+          f"rows): kernel {byol_k:.4f} ms on the card (bound "
+          f"{byol_bound[0]:.5f} by {byol_bound[1]}), {byol_h:.4f} ms on the "
+          f"host; twin {byol_t:.4f} ms")
+    for rows in (2 * CLI_BATCH, CLI_BATCH):
+        for m, c, _ in resnet50_bn_shapes(rows, SIZE):
+            x = (torch.randn(m, c, device=dev, generator=gen) * 2
+                 + 1).bfloat16()
+            err = max(err, _check_bn(x, 1e-4, 1e-3))
+            del x
+    print(f"bn_stats at the ResNet-50 trunk's 14 BN shapes at "
+          f"{2 * CLI_BATCH} rows (BYOL's CLI run) and {CLI_BATCH} (DenseCL's)"
+          f": vs twin and run to run: ok, max |err| {err:.3g}")
+    torch.cuda.empty_cache()
     return {"max_abs_err": err, "step": (step_k, step_t, step_h),
             "msn_step": (msn_k, msn_t, msn_h), "msn_bound": msn_bound,
+            "byol_step": (byol_k, byol_t, byol_h), "byol_bound": byol_bound,
             "tool": (tool_k, tool_t, tool_h), "bound": bound,
             "vit_step": (vit_k, vit_t, vit_h), "vit_bound": vit_bound,
             "supcon_step": (sc_k, sc_t, sc_h), "supcon_bound": sc_bound}
@@ -1063,9 +1123,11 @@ def phase_conv3x3() -> dict:
                       stats)
     _check_conv2d_cache(gen)
     times = {}
-    # the TPU tool's shape, the full-width embed's batch of layer1, and the
-    # batch the kNN CLI gives the kernel on the main path
-    for B in (256, KNN_BATCH, CLI_BATCH):
+    # the TPU tool's shape, BYOL's momentum forward over both views (2B at
+    # B=64 and at the CLI run's 48), the full-width embed's batch of layer1,
+    # and the batch the kNN CLI (and DenseCL's momentum forward) gives the
+    # kernel on the main path
+    for B in (256, 2 * TRAIN_BATCH, 2 * CLI_BATCH, KNN_BATCH, CLI_BATCH):
         for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             x, w, b = _conv_inputs(gen, B, 56, 56, 64, 64, dtype)
             for stats in (False, True):
@@ -2691,6 +2753,233 @@ def phase_train_distill(workdir: str, train: dict, mode: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 7k and 7l: BYOL and DenseCL through the training CLI
+# ---------------------------------------------------------------------------
+
+# mode -> the train-mode BN launches of one step (BYOL: the trunk's 53 over
+# the 2B rows of both views and the two 4096-wide head BNs; DenseCL: the
+# trunk's 53 over the B query rows), the conv3x3 launches of one step (the
+# momentum branch's forward without gradient: ResNet-50's layer1 3x3 convs,
+# over 2B rows for BYOL, B for DenseCL), the rows that forward runs at per
+# image, and the loss terms each epoch logs beside the loss
+MOMENTUM_MODES = {"BYOL": {"bn": 55, "conv": 3, "rows": 2, "terms": ()},
+                  "DenseCL": {"bn": 53, "conv": 3, "rows": 1,
+                              "terms": ("global_loss", "local_loss")}}
+MOMENTUM_EPOCHS = 2
+
+
+def _momentum_recipe(mode: str, **kw):
+    """The recipe of the CLI run (ResNet-50 bf16 at 224, lr 1e-3, the run's
+    epochs for the momentum schedule) for timing."""
+    import torch
+
+    from hairci_torch.ssl import build_recipe
+
+    return build_recipe(mode, img_size=SIZE, learning_rate=1e-3,
+                        dtype=torch.bfloat16, epochs=MOMENTUM_EPOCHS, **kw)
+
+
+def _momentum_heads(mode: str, state) -> tuple:
+    """The widths of the recipe's heads (out, in) and DenseCL's banks."""
+    online = state.online
+    if mode == "BYOL":
+        return tuple(tuple(h.layers[i].weight.shape)
+                     for h in (online.projection_head, online.prediction_head)
+                     for i in (0, 3))
+    return tuple(tuple(h.layers[i].weight.shape)
+                 for h in (online.projection_head_global,
+                           online.projection_head_local)
+                 for i in (0, 2)) + (tuple(state.extra["bank_g"].shape),
+                                     tuple(state.extra["bank_l"].shape))
+
+
+MOMENTUM_HEADS = {"BYOL": ((4096, 2048), (256, 4096), (4096, 256),
+                           (256, 4096)),
+                  "DenseCL": ((2048, 2048), (512, 2048), (2048, 2048),
+                              (512, 2048), (4096, 512), (4096, 512))}
+
+
+def phase_train_momentum(workdir: str, train: dict, mode: str) -> dict:
+    """BYOL (ResNet-50, the 2048 -> 4096 -> 256 projection and 256 -> 4096
+    -> 256 prediction heads) or DenseCL (ResNet-50 kept spatial, the 2048 ->
+    2048 -> 512 global and local heads, banks of 4096 x 512) through
+    mainpretrain.main at 224, bf16, seeded random weights, B=48 for 2
+    epochs on phase 6's manifest (48 + 48 + 32 padded): the launch counts
+    of every step (BYOL 55 bn_stats + 3 conv3x3, DenseCL 53 + 3; no rotate,
+    no top-k), the heads' widths, a finite ``Loss =`` line each epoch (and
+    DenseCL's two terms), the checkpoint's keys (DenseCL's banks, their
+    pointers at 6 x 48 rows). Then the step timed by StepTimer at B=64 and
+    at the config's B=256 where the B=64 peak scaled by rows fits, GFLOP an
+    image by FlopCounterMode, one step at B=64 under torch.profiler; for
+    DenseCL knn_classification --mode DenseCL --model resnet50 on the
+    checkpoint (3 conv3x3 launches a batch) and its features f32 card
+    against CPU."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.cli import mainpretrain
+
+    cfg = MOMENTUM_MODES[mode]
+    batch = CLI_BATCH
+    steps_per_epoch = math.ceil(128 / batch)         # 48 + 48 + 32 padded
+    steps = MOMENTUM_EPOCHS * steps_per_epoch
+    argv = ["--mode", mode, "--model", "resnet50", "--lr", "0.001",
+            "--size", str(SIZE), "--dtype", "bfloat16", "--seed", "42",
+            "--batch_size", str(batch), "--epochs", str(MOMENTUM_EPOCHS),
+            "--num_workers", "8", "--train_annotation", train["manifest"],
+            "--img_dir", DATASET,
+            "--save_path", os.path.join(workdir, f"out_{mode}")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    decodes = _decodes()
+    t0 = time.perf_counter()
+    trainer = mainpretrain.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    _check_decode_route(f"mainpretrain {mode}", _decodes() - decodes,
+                        MOMENTUM_EPOCHS * 128)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recipe, state = trainer.recipe, trainer.state
+    print(f"mainpretrain {mode} {recipe.backbone} {SIZE}px bf16 B={batch}: "
+          f"{steps} steps over {MOMENTUM_EPOCHS} epochs in {seconds:.1f} s "
+          f"(model build and first-step warmup included); peak memory "
+          f"{peak:.2f} GiB; launches {launches}; momentum by epoch "
+          f"{[recipe.momentum_for_epoch(e) for e in range(MOMENTUM_EPOCHS)]}")
+    loader = trainer.train_loader
+    if not (len(loader) == steps_per_epoch and loader.pad_last
+            and not loader.drop_last and state.step == steps):
+        raise AssertionError(f"{mode}: {len(loader)} batches an epoch, "
+                             f"pad_last {loader.pad_last}, {state.step} "
+                             f"steps")
+    want = {"rotate_shear": 0, "bn_stats": cfg["bn"] * steps,
+            "conv3x3": cfg["conv"] * steps, "topk_gallery_search": 0}
+    if launches != want:
+        raise AssertionError(f"{mode} launches {launches} != {want}")
+    heads = _momentum_heads(mode, state)
+    if (recipe.backbone, state.online.backbone.num_features, heads) != (
+            "resnet50", 2048, MOMENTUM_HEADS[mode]):
+        raise AssertionError(f"{mode}: {recipe.backbone}, heads {heads}")
+    with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    with open(os.path.join(trainer.save_path, "training_log.txt")) as f:
+        log = f.read()
+    for m in metrics:
+        terms = ", ".join(f"{k} {m[k]:.6f}" for k in cfg["terms"])
+        print(f"{mode} epoch {m['epoch']}: loss {m['loss']:.6f}"
+              + (f" ({terms})" if terms else "")
+              + f", {m['images_per_sec']:.1f} img/s (host clock, loader "
+              f"included)")
+    if [m["epoch"] for m in metrics] != list(range(MOMENTUM_EPOCHS)) or \
+            not all(math.isfinite(m[k]) for m in metrics
+                    for k in ("loss",) + cfg["terms"]) or \
+            log.count(": Loss = ") != MOMENTUM_EPOCHS:
+        raise AssertionError(f"{mode}: metrics {metrics}, log {log!r}")
+    ckpt = torch.load(os.path.join(trainer.save_path, "model_ckpt_latest"),
+                      map_location="cpu", weights_only=True)
+    keys = {"online", "ema", "optimizer", "step", "epoch"}
+    if mode == "DenseCL":
+        keys.add("extra")
+        extra = ckpt["extra"]
+        rows = steps * batch
+        filled = int((extra["bank_g"].abs().sum(1) > 0).sum())
+        if (int(extra["ptr_g"]), int(extra["ptr_l"]), filled) != (
+                rows, rows, rows) or not all(
+                    torch.isfinite(extra[k]).all()
+                    for k in ("bank_g", "bank_l")):
+            raise AssertionError(f"DenseCL banks: pointers "
+                                 f"{int(extra['ptr_g'])}, "
+                                 f"{int(extra['ptr_l'])}, {filled} rows")
+        print(f"DenseCL banks (4096 x 512 f32): {filled} rows filled, both "
+              f"pointers at {rows}")
+    if set(ckpt) != keys:
+        raise AssertionError(f"{mode} checkpoint keys {sorted(ckpt)}")
+    save_path = trainer.save_path
+    del trainer, recipe, state, ckpt
+    torch.cuda.empty_cache()
+
+    timed = {TRAIN_BATCH: _masked_step_times(_momentum_recipe(mode),
+                                             TRAIN_BATCH)}
+    _print_timed(f"{mode} resnet50", TRAIN_BATCH, timed[TRAIN_BATCH])
+    extrapolated = timed[TRAIN_BATCH]["peak_gib"] * CONFIG_BATCH / TRAIN_BATCH
+    if extrapolated < FIT_GIB:
+        timed[CONFIG_BATCH] = _masked_step_times(_momentum_recipe(mode),
+                                                 CONFIG_BATCH, runs=5)
+        _print_timed(f"{mode} resnet50", CONFIG_BATCH, timed[CONFIG_BATCH])
+    else:
+        print(f"train_step {mode} B={CONFIG_BATCH}: does not fit "
+              f"({extrapolated:.1f} GiB scaled from B={TRAIN_BATCH})")
+    images = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (TRAIN_BATCH, 256, 256, 3), dtype=np.uint8)).cuda()
+    profile = _device_breakdown(_momentum_recipe(mode), TRAIN_BATCH, images,
+                                workdir, mode, timed[TRAIN_BATCH]["ms"])
+    del images
+    knn_launches = {name: 0 for name in launches}
+    if mode == "DenseCL":
+        knn_launches = _eval_densecl(workdir, train, save_path)
+    return {"launches": launches, "knn_launches": knn_launches,
+            "timed": timed, "profile": profile, "peak_gib": peak,
+            "seconds": seconds}
+
+
+def _eval_densecl(workdir: str, train: dict, save_path: str) -> dict:
+    """knn_classification.main --mode DenseCL --model resnet50 on the
+    checkpoint, batches of 48: 3 conv3x3 launches a forward and no other;
+    unit-norm 2048-d features (the online trunk's unrounded pooled ones;
+    self-retrieval printed), then held f32 card against CPU."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.cli import knn_classification
+    from hairci_torch.eval.knn import knn_predict
+
+    test_csv = os.path.join(workdir, "test.csv")    # phase 7's 64 images
+    out_dir = os.path.join(workdir, "knn_out_DenseCL")
+    argv = ["--mode", "DenseCL", "--model", "resnet50", "--size", str(SIZE),
+            "--dtype", "bfloat16", "--eval_type", "knn",
+            "--batch_size", str(CLI_BATCH), "--num_workers", "8",
+            "--checkpoint_path", save_path,
+            "--train_annotation", train["manifest"],
+            "--test_annotation", test_csv, "--img_dir", DATASET,
+            "--save_path", out_dir]
+    forwards = math.ceil(128 / CLI_BATCH) + math.ceil(64 / CLI_BATCH)
+    _reset_counts()
+    decodes = _decodes()
+    t0 = time.perf_counter()
+    clf = knn_classification.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    _check_decode_route("knn_classification DenseCL", _decodes() - decodes,
+                        128 + 64)
+    print(f"knn_classification DenseCL resnet50 {SIZE}px bf16, batches of "
+          f"{CLI_BATCH}: {forwards} forwards in {seconds:.2f} s; launches "
+          f"{launches}")
+    want = {"rotate_shear": 0, "bn_stats": 0, "conv3x3": 3 * forwards,
+            "topk_gallery_search": 0}
+    if launches != want:
+        raise AssertionError(f"DenseCL knn launches {launches} != {want}")
+    if not os.path.isfile(os.path.join(out_dir,
+                                       "knn_evaluation_results.txt")):
+        raise AssertionError("DenseCL: no knn_evaluation_results.txt")
+    tr_f, tr_l, te_f, te_l = clf.extracting_features()
+    if tr_f.shape != (128, 2048) or te_f.shape != (64, 2048):
+        raise AssertionError(f"features {tr_f.shape} {te_f.shape}")
+    for f in (tr_f, te_f):
+        if not (np.isfinite(f).all() and np.abs(
+                np.linalg.norm(f, axis=1) - 1).max() < 1e-3):
+            raise AssertionError("features are not finite and unit-norm")
+    self_hit = float(np.mean(knn_predict(tr_f, tr_l, te_f, 1) == te_l))
+    print(f"self-retrieval at k=1 (DenseCL resnet50): {100 * self_hit:.1f} "
+          f"% (printed, not held)")
+    del clf
+    torch.cuda.empty_cache()
+    _features_card_vs_cpu("DenseCL", save_path, test_csv)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7f: the baselines' checkpoints through every evaluation
 # ---------------------------------------------------------------------------
 
@@ -3187,6 +3476,54 @@ def phase_train_parity_distill(mode: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_train_parity_momentum(mode: str) -> None:
+    """One f32 step of BYOL or DenseCL (ResNet-50 at 224, B=8, the full
+    heads; DenseCL's banks of 4096 x 512) on the card and on the CPU from
+    identical weights and views: the loss (and DenseCL's two terms) within
+    rtol 1e-3."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.ssl import build_recipe
+
+    B = 8
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8))
+    rec = build_recipe(mode, img_size=SIZE, weight_decay=1e-4,
+                       dtype=torch.float32)
+    draws = rec.draw(torch.Generator().manual_seed(SEED), B, 256, 256)
+    views = rec.transform.apply(images, draws["views"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = rec.create_state(SEED, B, torch.device(dev))
+        t0 = time.perf_counter()
+        m = rec.step_on_views(state, *(v.to(dev) for v in views),
+                              momentum=0.996)
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in state.online.named_parameters()}
+        out[dev] = ({k: float(v) for k, v in m.items()}, grads)
+        print(f"train parity {dev}: {mode} step resnet50 {SIZE}px B={B} f32:"
+              f" {out[dev][0]} ({time.perf_counter() - t0:.1f} s)")
+        del state
+    rel = max(abs(out["cuda"][0][k] - v) / max(abs(v), 1e-6)
+              for k, v in out["cpu"][0].items())
+    # relative to the model's largest gradient entry: some gradients are 0
+    # in exact arithmetic (BYOL's projection bias, which the predictor's
+    # train-mode BN subtracts again) and rounding noise on either device
+    top = max(g.abs().max().item() for g in out["cpu"][1].values())
+    diff = {n: (out["cuda"][1][n] - g).abs().max().item()
+            for n, g in out["cpu"][1].items()}
+    worst = max(diff, key=diff.get)
+    print(f"train parity {mode}: largest relative loss-term difference "
+          f"{rel:.3g}; largest gradient difference {diff[worst] / top:.3g} "
+          f"of the largest gradient entry ({worst})")
+    if not rel <= 1e-3:
+        raise AssertionError(f"{mode}: card and CPU losses differ by "
+                             f"{rel:.3g}")
+    torch.cuda.empty_cache()
+
+
 def kernel_times(root: str) -> int:
     """``python3 chip_smoke.py --kernel-times [DIR]``: the card's and the
     host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step,
@@ -3297,6 +3634,8 @@ def main() -> int:
                   for mode in MASKED}
         distill = {mode: phase_train_distill(workdir, train, mode)
                    for mode in DISTILL}
+        momentum = {mode: phase_train_momentum(workdir, train, mode)
+                    for mode in MOMENTUM_MODES}
     vit = train_vit["launches"]
     phase_probe_full(phase_knn_full())
     phase_embed(kern["conv3x3"]["times"])
@@ -3308,9 +3647,12 @@ def main() -> int:
         phase_train_parity_masked(mode)
     for mode in DISTILL:
         phase_train_parity_distill(mode)
+    for mode in MOMENTUM_MODES:
+        phase_train_parity_momentum(mode)
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
     conv224 = kern["conv3x3"]["times224"][CLI_BATCH]
+    conv128 = kern["conv3x3"]["times"][(2 * TRAIN_BATCH, "bf16")]
     # ms (the card's time, calls back to back), host_ms (the wrapper's time
     # on the host), plain_ms, bound_ms and library_ms of a kernel are at one
     # shape: the top-k at Q=1 (its fma route) and, as
@@ -3328,9 +3670,13 @@ def main() -> int:
     # the SimCLR and SupCon training runs (phases 7d, 7e), conv3x3's in the
     # four evaluations of each one's checkpoint (phase 7f); bn_stats'
     # supcon_* numbers are the 20 BN inputs of one SupCon forward summed,
-    # its msn_* numbers the 4 BN inputs of one MSN step summed,
-    # conv3x3's *_224 numbers the CIFAR-stem ResNet-18's layer1 conv at the
-    # kNN CLI's batch, (48, 224, 224, 64) bf16. The top-k's *_d512 numbers
+    # its msn_* numbers the 4 BN inputs of one MSN step summed, its byol_*
+    # numbers the 2 head BN inputs of one BYOL step at B=64, (128, 4096)
+    # bf16, summed; conv3x3's *_224 numbers the CIFAR-stem ResNet-18's
+    # layer1 conv at the kNN CLI's batch, (48, 224, 224, 64) bf16, its *_128
+    # numbers BYOL's momentum forward at B=64, (128, 56, 56, 64) bf16;
+    # launches_byol / launches_densecl each run's training and (DenseCL)
+    # kNN evaluation, phases 7k, 7l. The top-k's *_d512 numbers
     # are the same at the face encoder's width, 103,945 x 512 f32 (phase 3),
     # launches_face its route's launches in each face model's serve run
     # (phase 4d), launches_faiss the --faiss_index search's and the demo's
@@ -3409,7 +3755,10 @@ def main() -> int:
          "supcon_bound_ms": bn["supcon_bound"][0],
          "msn_ms": bn["msn_step"][0], "msn_host_ms": bn["msn_step"][2],
          "msn_plain_ms": bn["msn_step"][1],
-         "msn_bound_ms": bn["msn_bound"][0]},
+         "msn_bound_ms": bn["msn_bound"][0],
+         "byol_ms": bn["byol_step"][0], "byol_host_ms": bn["byol_step"][2],
+         "byol_plain_ms": bn["byol_step"][1],
+         "byol_bound_ms": bn["byol_bound"][0]},
         {"name": "conv3x3", "route": "cuda",
          "source": "hairci_torch/ops/csrc/conv3x3.cu",
          "replaces": "tools/fused_conv_bn_bench.py:47",
@@ -3425,11 +3774,17 @@ def main() -> int:
          "ms_224": conv224["ms"], "host_ms_224": conv224["host_ms"],
          "plain_ms_224": conv224["plain_ms"],
          "bound_ms_224": conv224["bound_ms"],
-         "library_ms_224": conv224["library_ms"]}]
+         "library_ms_224": conv224["library_ms"],
+         "ms_128": conv128["ms"], "host_ms_128": conv128["host_ms"],
+         "plain_ms_128": conv128["plain_ms"],
+         "bound_ms_128": conv128["bound_ms"],
+         "library_ms_128": conv128["library_ms"]}]
     # the masked-image runs (phases 7g, 7h) and DINOv2 (7i) launch none of
-    # the four, MSN (7j) bn_stats 4 times a step: each run's launches, its
-    # training and its kNN evaluation together
-    runs_by_mode = {**masked, **distill}
+    # the four, MSN (7j) bn_stats 4 times a step, BYOL (7k) bn_stats 55 and
+    # conv3x3 3 times a step, DenseCL (7l) 53 and 3 a step and conv3x3 3
+    # times a forward of its kNN: each run's launches, its training and its
+    # kNN evaluation together
+    runs_by_mode = {**masked, **distill, **momentum}
     for row in rows:
         key = ("topk_gallery_search" if row["name"].startswith("topk")
                else row["name"])

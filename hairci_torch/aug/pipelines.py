@@ -1,6 +1,6 @@
 """Augmentation pipelines (port of part of ``hairci/aug/pipelines.py``):
 the SimCLR views, SupCon's two views, the single view of MAE and SimMIM,
-DINO's and MSN's multi-crop views, the positive transform and the hair
+BYOL's and DenseCL's two views, DINO's and MSN's multi-crop views, the positive transform and the hair
 masking of every SHAM step, and the deterministic kNN and test transforms.
 
 Each pipeline has a draw half (a dict of small CPU tensors from one CPU
@@ -126,6 +126,23 @@ def mae_transform(size: int = 224) -> MultiViewTransform:
 def simmim_transform(size: int = 224) -> MultiViewTransform:
     """SimMIM's view: the same as MAE's."""
     return mae_transform(size)
+
+
+def byol_transform(size: int = 224) -> MultiViewTransform:
+    """lightly BYOLTransform: two views, blurred with p = 1.0 and 0.1, the
+    second solarized with p = 0.2."""
+    v1 = ViewConfig(size=size, crop_scale=(0.08, 1.0), cj_bright=0.4,
+                    cj_contrast=0.4, cj_sat=0.2, cj_hue=0.1, blur_p=1.0,
+                    solarize_p=0.0)
+    v2 = dataclasses.replace(v1, blur_p=0.1, solarize_p=0.2)
+    return MultiViewTransform((v1, v2))
+
+
+def densecl_transform(size: int = 224) -> MultiViewTransform:
+    """lightly DenseCLTransform: SimCLR's views at half the jitter."""
+    v = ViewConfig(size=size, cj_bright=0.4, cj_contrast=0.4, cj_sat=0.4,
+                   cj_hue=0.1)
+    return MultiViewTransform((v, v))
 
 
 def dino_transform(global_size: int = 224, local_size: int = 96,

@@ -18,8 +18,9 @@ both loaders, L2-normalized -> one of four evaluations:
   * ``inter_intra_distance``: intra/inter-class variance of both splits ->
     ``variance_analysis_both.txt``.
 
-``--mode`` is SHAM, simclr, simclr_supcon, mae, simMIM, dinov2 or MSN;
-other modes exit with "not yet ported". mae and simMIM are ViT-B/16
+``--mode`` is SHAM, simclr, simclr_supcon, mae, simMIM, dinov2, MSN or
+DenseCL; siaMIM exits with "not yet ported" (BYOL is no evaluation mode,
+as in the JAX CLI). mae and simMIM are ViT-B/16
 whatever ``--model`` says (resnet18, resnet50 and vit_b_16 all mean
 ``vit_base_patch16``: the JAX package's ``VIT_CONFIGS`` lacks
 ``vit_b_16``). ``--device`` defaults
@@ -41,6 +42,10 @@ mean ``vit_base_patch16``; the JAX recipe raises ``KeyError`` on
 checkpoint restores with the online one. A reference DINOv2 ``.pth``
 (student and teacher) and MSN ``.pth`` (anchor and target) are read by
 ``dinov2_state_dict`` / ``msn_state_dict`` into the online and EMA branches.
+DenseCL's features are the online trunk's pooled ones; a reference DenseCL
+``.pth`` (both branches) is read by ``densecl_state_dict``, and is ResNet-50
+only, as ``convert_densecl`` reads it: with another ``--model`` the CLI
+exits naming ``--model resnet50``.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from hairci_torch.data import DataLoader, load_manifest
 from hairci_torch.eval.classifier import Classifier
 from hairci_torch.eval.knn import full_f32
 from hairci_torch.models.convert import (
+    densecl_state_dict,
     dinov2_state_dict,
     load_torch_state_dict,
     mae_state_dict,
@@ -106,7 +112,7 @@ def build_eval_parser() -> argparse.ArgumentParser:
 
 
 PORTED_MODES = ("SHAM", "simclr", "simclr_supcon", "mae", "simMIM",
-                "dinov2", "MSN")
+                "dinov2", "MSN", "DenseCL")
 
 
 def recipe_for_eval(args):
@@ -125,8 +131,14 @@ def _reference_state_dict(args, path: str, model):
     sd = load_torch_state_dict(path)
     if args.mode == "simclr_supcon":
         return supcon_state_dict(sd)
+    if args.mode == "DenseCL" and args.model != "resnet50":
+        raise SystemExit(
+            f"a reference DenseCL .pth holds ResNet-50 trunks (as hairci's "
+            f"convert_densecl reads them); pass --model resnet50, not "
+            f"--model {args.model}")
     readers = {"mae": mae_state_dict, "simMIM": simmim_state_dict,
-               "dinov2": dinov2_state_dict, "MSN": msn_state_dict}
+               "dinov2": dinov2_state_dict, "MSN": msn_state_dict,
+               "DenseCL": densecl_state_dict}
     if args.mode in readers:
         try:
             return readers[args.mode](sd, model)

@@ -1,5 +1,12 @@
 """Losses (port of hairci.losses)."""
 
+from hairci_torch.losses.dense import (
+    dense_loss,
+    memory_bank_infonce,
+    patch_contrastive_loss,
+    select_most_similar,
+    update_memory_bank,
+)
 from hairci_torch.losses.distill import (
     dino_loss,
     distillation_loss,
@@ -16,7 +23,8 @@ from hairci_torch.losses.recon import (
     unpatchify,
 )
 
-__all__ = ["dino_loss", "distillation_loss", "ibot_patch_loss", "koleo_loss",
-           "masked_l1_loss", "masked_mse_loss", "msn_loss",
-           "negative_cosine_similarity", "patchify", "unigrad_loss",
-           "unpatchify"]
+__all__ = ["dense_loss", "dino_loss", "distillation_loss", "ibot_patch_loss",
+           "koleo_loss", "masked_l1_loss", "masked_mse_loss",
+           "memory_bank_infonce", "msn_loss", "negative_cosine_similarity",
+           "patch_contrastive_loss", "patchify", "select_most_similar",
+           "unigrad_loss", "unpatchify", "update_memory_bank"]

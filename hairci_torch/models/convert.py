@@ -43,6 +43,14 @@ the online branch from ``params``, the EMA (teacher, target) from
 reference MSN ``.pth`` (torchvision ViTs under ``anchor_backbone.vit.`` /
 ``backbone.vit.``, lightly's MSN heads) as ``convert_msn`` does; each
 returns the online and the EMA branch.
+
+``byol_state_dict_from_jax`` / ``densecl_state_dict_from_jax`` map one
+branch of a JAX ``BYOLModule`` / ``DenseCLModule`` (params, batch stats).
+``densecl_state_dict`` reads a reference DenseCL ``.pth`` (ResNet-50
+``nn.Sequential`` trunks under ``backbone.`` / ``backbone_momentum.``,
+lightly's heads under ``projection_head_{global,local}{,_momentum}.``) as
+``convert_densecl`` does, into the online and the EMA branch. The JAX
+package has no BYOL reader, and neither has the port.
 """
 
 from __future__ import annotations
@@ -517,6 +525,22 @@ def dinov2_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _mlp_head_from_jax(sd: Dict[str, torch.Tensor], name: str,
+                       hp: Mapping, hs: Mapping, layout: Sequence,
+                       dense: Sequence[str] = ()) -> None:
+    """A JAX ``MLPHead`` (``dense{i}`` with its bias where it has one,
+    ``bn{i}``) as lightly's ``{name}.layers.*``: ``layout`` holds the
+    (Linear, BN or None) indices of each layer, ``dense`` other names of
+    the Dense layers (DenseCL's local head: ``fc1``, ``fc2``)."""
+    for i, (lin, bn) in enumerate(layout):
+        p = hp[dense[i] if dense else f"dense{i}"]
+        sd[f"{name}.layers.{lin}.weight"] = _t(np.asarray(p["kernel"]).T)
+        if "bias" in p:
+            sd[f"{name}.layers.{lin}.bias"] = _t(p["bias"])
+        if bn is not None:
+            _put_bn(sd, f"{name}.layers.{bn}", hp[f"bn{i}"], hs[f"bn{i}"])
+
+
 def msn_state_dict_from_jax(params: Mapping, batch_stats: Mapping
                             ) -> Dict[str, torch.Tensor]:
     """One branch of a JAX ``MSNModule`` (params, batch_stats) -> the port's
@@ -524,16 +548,9 @@ def msn_state_dict_from_jax(params: Mapping, batch_stats: Mapping
     dense0 / bn0 / dense1 / bn1 / dense2 as ``projection_head.layers.{0,1,3,
     4,6}``."""
     sd = _backbone_from_jax(params["backbone"], {}, "vit", "backbone.")
-    hp, hs = params["projection_head"], batch_stats["projection_head"]
-    for i, (lin, bn) in enumerate(((0, 1), (3, 4), (6, None))):
-        dense = hp[f"dense{i}"]
-        sd[f"projection_head.layers.{lin}.weight"] = _t(
-            np.asarray(dense["kernel"]).T)
-        if "bias" in dense:
-            sd[f"projection_head.layers.{lin}.bias"] = _t(dense["bias"])
-        if bn is not None:
-            _put_bn(sd, f"projection_head.layers.{bn}", hp[f"bn{i}"],
-                    hs[f"bn{i}"])
+    _mlp_head_from_jax(sd, "projection_head", params["projection_head"],
+                       batch_stats["projection_head"],
+                       ((0, 1), (3, 4), (6, None)))
     sd["prototypes"] = _t(params["prototypes"])
     return sd
 
@@ -597,3 +614,67 @@ def msn_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
 
     return (branch("anchor_backbone.vit.", "anchor_projection_head."),
             branch("backbone.vit.", "projection_head."))
+
+
+# ---------------------------------------------------------------------------
+# BYOL and DenseCL
+# ---------------------------------------------------------------------------
+
+def byol_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                             model: str = "resnet50"
+                             ) -> Dict[str, torch.Tensor]:
+    """One branch of a JAX ``BYOLModule`` (params, batch_stats) -> the
+    port's ``BYOLModule`` state dict (load with ``strict=True``): each
+    head's dense0 / bn0 / dense1 as ``layers.{0,1,3}``."""
+    sd = _backbone_from_jax(params["backbone"],
+                            batch_stats.get("backbone", {}), model,
+                            "backbone.")
+    for head in ("projection_head", "prediction_head"):
+        _mlp_head_from_jax(sd, head, params[head], batch_stats[head],
+                           ((0, 1), (3, None)))
+    return sd
+
+
+def densecl_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                                model: str = "resnet50"
+                                ) -> Dict[str, torch.Tensor]:
+    """One branch of a JAX ``DenseCLModule`` (params, batch_stats) -> the
+    port's ``DenseCLModule`` state dict (load with ``strict=True``): the
+    global head's dense0 / dense1 and the local head's fc1 / fc2 as
+    ``layers.{0,2}``."""
+    sd = _backbone_from_jax(params["backbone"], batch_stats["backbone"],
+                            model, "backbone.")
+    _mlp_head_from_jax(sd, "projection_head_global",
+                       params["projection_head_global"], {},
+                       ((0, None), (2, None)))
+    _mlp_head_from_jax(sd, "projection_head_local",
+                       params["projection_head_local"], {},
+                       ((0, None), (2, None)), dense=("fc1", "fc2"))
+    return sd
+
+
+def densecl_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
+                       ) -> Tuple[Dict[str, torch.Tensor],
+                                  Dict[str, torch.Tensor]]:
+    """A reference DenseCL checkpoint -> (online, momentum) state dicts in
+    the key set of ``model`` (the port's ``DenseCLModule``), as
+    ``convert_densecl`` reads it: each trunk is
+    ``nn.Sequential(*resnet50.children())[:-2]`` under ``backbone.<int>.``
+    / ``backbone_momentum.<int>.``, each head lightly's
+    ``projection_head_{global,local}{,_momentum}.layers.{0,2}``.
+    ``num_batches_tracked`` counters are not read. Raises ``KeyError``
+    where a tensor is missing."""
+    seq = {name: index for index, name in _SEQUENTIAL_RESNET.items()}
+
+    def branch(suffix: str) -> Dict[str, torch.Tensor]:
+        out = {}
+        for key in model.state_dict():
+            top, _, rest = key.partition(".")
+            if top == "backbone":
+                child, _, tail = rest.partition(".")
+                out[key] = sd[f"backbone{suffix}.{seq[child]}.{tail}"]
+            else:
+                out[key] = sd[f"{top}{suffix}.{rest}"]
+        return out
+
+    return branch(""), branch("_momentum")

@@ -1,8 +1,9 @@
 """Projection heads (port of ``hairci/models/heads.py``): ``MLPHead`` (ReLU,
 or exact-erf GELU as in lightly's MSN head), the SimCLR projection head
 with its widths by backbone (``_PROJ_DIMS`` of ``hairci/ssl/simclr.py``),
-SupCon's ``mlp`` and ``linear`` heads (``hairci/ssl/supcon.py:SupConModule``)
-and the DINO head over weight-normalised prototypes (``DINOHead``)."""
+SupCon's ``mlp`` and ``linear`` heads (``hairci/ssl/supcon.py:SupConModule``),
+the DINO head over weight-normalised prototypes (``DINOHead``), BYOL's
+projection and prediction heads, and DenseCL's global and local heads."""
 
 from __future__ import annotations
 
@@ -81,6 +82,45 @@ def simclr_projection_head(in_dim: int, hidden: int = 2048, out: int = 128,
     """lightly SimCLRProjectionHead: Dense+BN+ReLU, Dense+BN."""
     return MLPHead(in_dim, [(hidden, True, True), (out, True, False)],
                    dtype=dtype)
+
+
+def byol_projection_head(in_dim: int, hidden: int = 4096, out: int = 256,
+                         dtype: torch.dtype = torch.float32) -> MLPHead:
+    """lightly BYOLProjectionHead: Dense+BN+ReLU, Dense with a bias (keys
+    ``layers.{0,1,3}``)."""
+    return MLPHead(in_dim, [(hidden, True, True), (out, False, False)],
+                   dtype=dtype)
+
+
+def byol_prediction_head(in_dim: int = 256, hidden: int = 4096,
+                         out: int = 256,
+                         dtype: torch.dtype = torch.float32) -> MLPHead:
+    """lightly BYOLPredictionHead: the projection head's layout."""
+    return byol_projection_head(in_dim, hidden, out, dtype)
+
+
+def densecl_global_head(in_dim: int, hidden: int = 2048, out: int = 128,
+                        dtype: torch.dtype = torch.float32) -> MLPHead:
+    """lightly DenseCLProjectionHead: Dense+ReLU, Dense, both with a bias
+    (keys ``layers.{0,2}``)."""
+    return MLPHead(in_dim, [(hidden, False, True), (out, False, False)],
+                   dtype=dtype)
+
+
+class DenseCLLocalHead(MLPHead):
+    """The DenseCL head over every position of a (B, H, W, C) map: two
+    Dense layers with a bias and a ReLU between them, on the (B, H*W, C)
+    view in ``dtype``; returns (B, H*W, out) f32 (``hairci/models/heads.py:
+    DenseCLLocalHead``, its ``fc1`` / ``fc2`` as ``layers.{0,2}``)."""
+
+    def __init__(self, in_dim: int, hidden: int = 2048, out: int = 128,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_dim, [(hidden, False, True), (out, False, False)],
+                         dtype=dtype)
+
+    def forward(self, spatial: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = spatial.shape
+        return super().forward(spatial.reshape(B, H * W, C))
 
 
 def supcon_head(in_dim: int, head: str = "mlp", feat_dim: int = 128,

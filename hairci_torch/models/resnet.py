@@ -6,7 +6,9 @@ torchvision names and layout (``conv1``, ``bn1``, ``layer{1-4}.{j}.conv{i}``,
 symmetric padding, the stride on the bottleneck's 3x3 conv, the last BN scale
 of each block initialised to zero, the imagenet (7x7/2 + max pool) and cifar
 (3x3/1) stems, compute in ``dtype`` with f32 params, and features pooled in
-f32 then rounded to ``dtype``.
+f32 then rounded to ``dtype``. ``ResNetFeatures`` (``build_resnet(...,
+with_spatial=True)``, DenseCL's trunk) returns ``(pooled, spatial)``: the
+last stage's map as NHWC f32 and its f32 mean, not rounded.
 
 The public boundary is NHWC, as in JAX. Inside, the convs run on
 ``channels_last`` NCHW tensors: the boundary's NHWC becomes a free
@@ -160,7 +162,9 @@ class ResNet(nn.Module):
         self.num_stages = len(stage_sizes)
         self.num_features = cin
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) -> the last stage's map, ``channels_last`` NCHW in
+        ``dtype``."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
         x = F.relu(self.bn1(self.conv1(x)))
@@ -168,7 +172,24 @@ class ResNet(nn.Module):
             x = F.max_pool2d(x, 3, 2, 1)
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.trunk(x)
         return x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype).float()
+
+
+class ResNetFeatures(ResNet):
+    """The trunk returning ``(pooled, spatial)`` for dense heads
+    (``hairci/models/resnet.py:ResNetFeatures``): ``spatial`` is the last
+    map as NHWC (B, H, W, C) f32 (a ``channels_last`` map permuted is
+    contiguous, so its ``(B, H*W, C)`` view follows JAX's row-major (h, w)
+    order), ``pooled`` its f32 mean over H and W, not rounded to
+    ``dtype`` as ``ResNet.forward``'s is."""
+
+    def forward(self, x: torch.Tensor):  # type: ignore[override]
+        spatial = self.trunk(x).permute(0, 2, 3, 1).float()
+        return spatial.mean(dim=(1, 2)), spatial
 
 
 _STAGES = {
@@ -178,9 +199,16 @@ _STAGES = {
     "resnet101": ([3, 4, 23, 3], BottleneckBlock),
 }
 
+# feature widths by name (``hairci/models/resnet.py:MODEL_DICT``)
+MODEL_DICT = {"resnet18": 512, "resnet34": 512, "resnet50": 2048,
+              "resnet101": 2048}
+
+
 def build_resnet(name: str, stem: str = "imagenet",
-                 dtype: torch.dtype = torch.float32) -> ResNet:
+                 dtype: torch.dtype = torch.float32,
+                 with_spatial: bool = False) -> ResNet:
     if name not in _STAGES:
         raise ValueError(f"unknown resnet {name!r}; choices: {sorted(_STAGES)}")
     stages, block = _STAGES[name]
-    return ResNet(stages, block, stem=stem, dtype=dtype)
+    cls = ResNetFeatures if with_spatial else ResNet
+    return cls(stages, block, stem=stem, dtype=dtype)

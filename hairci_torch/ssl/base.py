@@ -3,7 +3,7 @@
 A recipe owns its modules and exposes ``create_state``, ``train_step`` and
 ``extract_features``; ``build_recipe`` is keyed on the reference ``--mode``
 strings. Ported: ``SHAM``, ``simclr``, ``simclr_supcon``, ``mae``,
-``simMIM``, ``dinov2`` and ``MSN``.
+``simMIM``, ``dinov2``, ``MSN``, ``BYOL`` and ``DenseCL``.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def register_recipe(name: str):
 def build_recipe(mode: str, **kwargs):
     # importing a recipe module registers it
     from hairci_torch.ssl import (  # noqa: F401
-        dinov2, mae, msn, sham, simclr, simmim, supcon)
+        byol, densecl, dinov2, mae, msn, sham, simclr, simmim, supcon)
 
     if mode not in RECIPES:
         raise NotImplementedError(

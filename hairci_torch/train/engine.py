@@ -5,14 +5,15 @@ pinned memory and keeps the step metrics on the card until the epoch ends:
 one host sync per epoch. SHAM is staged on the host (warmup -> mine ->
 mined, with k adapted from the previous epoch's violations at the
 boundary); DINOv2 takes its per-step teacher temperature and momentum at
-the global step ``epoch * len(loader) + batch_id``; every other recipe
-takes the plain step, with the batch's labels. It writes the JAX engine's
-``training_log.txt`` line (SHAM's, or ``Loss =`` for every other mode) and
-``metrics.jsonl`` (every metric of the step: DINOv2's ``dino_loss``,
-``ibot_loss`` and ``koleo_loss`` too), and a checkpoint every 50 epochs
-plus ``model_ckpt_latest``; resume restores the EMA, SHAM's negative cache
-and DINOv2's centres too. The JAX engine's per-epoch momentum branch (BYOL,
-DenseCL, SiameseIM) comes with the recipes that need it.
+the global step ``epoch * len(loader) + batch_id``; a recipe with
+``momentum_for_epoch`` (BYOL, DenseCL) takes that epoch's momentum; every
+other recipe takes the plain step, with the batch's labels. It writes the
+JAX engine's ``training_log.txt`` line (SHAM's, or ``Loss =`` for every
+other mode) and ``metrics.jsonl`` (every metric of the step: DINOv2's
+``dino_loss``, ``ibot_loss`` and ``koleo_loss``, DenseCL's ``global_loss``
+and ``local_loss`` too), and a checkpoint every 50 epochs plus
+``model_ckpt_latest``; resume restores the EMA, SHAM's negative cache,
+DINOv2's centres and DenseCL's banks too.
 """
 
 from __future__ import annotations
@@ -128,6 +129,11 @@ class Trainer:
                         state, x, gen,
                         teacher_temp=self.recipe.teacher_temp(gstep),
                         momentum=self.recipe.momentum(gstep))
+                elif hasattr(self.recipe, "momentum_for_epoch"):
+                    # the per-epoch cosine momentum (BYOL, DenseCL)
+                    metrics = self.recipe.train_step(
+                        state, x, gen,
+                        momentum=self.recipe.momentum_for_epoch(epoch))
                 else:
                     y = to_device(torch.from_numpy(
                         np.asarray(labels, np.int64)), self.device)

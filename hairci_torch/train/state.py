@@ -2,8 +2,9 @@
 
 The JAX pytree becomes one mutable object: the online module, the
 optimizer, the step count and, where the recipe has them, the EMA teacher
-copy (SHAM, DINOv2, MSN), the mined-negative cache (SHAM) and ``extra``
-tensors (DINOv2's DINO and iBOT centres).
+copy (SHAM, DINOv2, MSN, BYOL, DenseCL), the mined-negative cache (SHAM)
+and ``extra`` tensors (DINOv2's DINO and iBOT centres, DenseCL's memory
+banks and their pointers).
 The port updates it in place (the JAX step returns a new state), which keeps
 one copy of the weights and optimizer moments on the card.
 """
@@ -25,7 +26,8 @@ class TrainState:
     # staged hard-negative cache: (num_batches, B) neighbour indices
     neg_indices: Optional[torch.Tensor] = None
     step: int = 0
-    # recipe-specific tensors carried from step to step (DINOv2's centres)
+    # recipe-specific tensors carried from step to step (DINOv2's centres,
+    # DenseCL's banks)
     extra: Optional[Dict[str, torch.Tensor]] = None
 
 

@@ -46,20 +46,25 @@ def close(got, want, name="", **tol):
                                **(tol or TOL))
 
 
-def check_grads(jax_fn, torch_fn, arrays, argnums):
+def check_grads(jax_fn, torch_fn, arrays, argnums, has_aux=False):
     """The value and the gradients w.r.t. ``argnums`` of a scalar function
-    in both packages on the same arrays."""
-    want, jgrads = jax.jit(jax.value_and_grad(jax_fn, argnums=argnums))(
-        *[jnp.asarray(a) for a in arrays])
+    in both packages on the same arrays, JAX's in one compile. With
+    ``has_aux`` both functions return (value, aux): the aux pair (port's,
+    JAX's) is returned."""
+    out, jgrads = jax.jit(jax.value_and_grad(
+        jax_fn, argnums=argnums, has_aux=has_aux))(
+            *[jnp.asarray(a) for a in arrays])
     ts = [_t(a, grad=i in argnums) for i, a in enumerate(arrays)]
     got = torch_fn(*ts)
+    (want, jaux), (got, aux) = ((out, got) if has_aux
+                                else ((out, None), (got, None)))
     got.backward()
     close(got, want, "value")
     for i, g in zip(argnums, jgrads):
         # no gradient through a detached input: JAX's stop_gradient gives 0
         close(torch.zeros_like(ts[i]) if ts[i].grad is None else ts[i].grad,
               g, f"grad {i}")
-    return got
+    return (aux, jaux) if has_aux else got
 
 
 def test_cosine_losses_match_jax():
@@ -85,17 +90,14 @@ def test_dino_loss_and_centre_match_jax():
 
     def jfn(*xs):
         return jd.dino_loss(tuple(xs[:2]), tuple(xs[2:6]), xs[6],
-                            teacher_temp=0.055)[0]
+                            teacher_temp=0.055)
 
     def pfn(*xs):
-        return pd.dino_loss(xs[:2], xs[2:6], xs[6], teacher_temp=0.055)[0]
+        return pd.dino_loss(xs[:2], xs[2:6], xs[6], teacher_temp=0.055)
 
-    check_grads(jfn, pfn, teacher + student + [center], (0, 1, 2, 3, 4, 5))
-    _, want = jd.dino_loss(tuple(map(jnp.asarray, teacher)),
-                           tuple(map(jnp.asarray, student)),
-                           jnp.asarray(center), teacher_temp=0.055)
-    _, got = pd.dino_loss([_t(t) for t in teacher], [_t(s) for s in student],
-                          _t(center), teacher_temp=0.055)
+    # the loss, its gradients and the new centre from one JAX compile
+    got, want = check_grads(jfn, pfn, teacher + student + [center],
+                            (0, 1, 2, 3, 4, 5), has_aux=True)
     close(got, want, "centre")
     assert not got.requires_grad
 
@@ -106,14 +108,12 @@ def test_ibot_patch_loss_and_centre_match_jax():
     t, s = _normal(rng, B, N, K, scale=3), _normal(rng, B, N, K, scale=3)
     mask = rng.uniform(size=(B, N)) < 0.4
     center = _normal(rng, 1, K)
-    check_grads(
+    # the loss, its gradients and the new centre from one JAX compile
+    got, want = check_grads(
         lambda a, b: jd.ibot_patch_loss(a, b, jnp.asarray(mask),
-                                        jnp.asarray(center), 0.06)[0],
-        lambda a, b: pd.ibot_patch_loss(a, b, _t(mask), _t(center), 0.06)[0],
-        [t, s], (1,))
-    _, want = jd.ibot_patch_loss(jnp.asarray(t), jnp.asarray(s),
-                                 jnp.asarray(mask), jnp.asarray(center), 0.06)
-    _, got = pd.ibot_patch_loss(_t(t), _t(s), _t(mask), _t(center), 0.06)
+                                        jnp.asarray(center), 0.06),
+        lambda a, b: pd.ibot_patch_loss(a, b, _t(mask), _t(center), 0.06),
+        [t, s], (1,), has_aux=True)
     close(got, want, "centre")
 
 
@@ -134,7 +134,7 @@ def test_koleo_with_duplicate_rows_stays_finite():
     zt = _t(z, grad=True)
     got = pd.koleo_loss(zt)
     got.backward()
-    want, jgrad = jax.value_and_grad(jd.koleo_loss)(jnp.asarray(z))
+    want, jgrad = jax.jit(jax.value_and_grad(jd.koleo_loss))(jnp.asarray(z))
     assert torch.isfinite(zt.grad).all() and np.isfinite(jgrad).all()
     for v in (got.item(), float(want)):
         assert -0.5 * np.log(1e-6 + 1e-8) <= v <= -0.5 * np.log(1e-8), v

@@ -104,10 +104,12 @@ def jax_run():
         new, aux = jax.device_get(jax.jit(jrec.train_step)(
             state, {"image": sample}, key))
         images = rng.integers(0, 256, (3, S + 8, S + 8, 3), dtype=np.uint8)
-        feats = np.asarray(jax.jit(jrec.extract_features)(state, images))
+        extract = jax.jit(jrec.extract_features)
+        feats = np.asarray(extract(state, images))
         return dict(views=views, noise=noise, ids_keep=ids_keep,
                     params=params, stats=stats, ema=ema, ema_stats=ema_stats,
-                    new=new, aux=aux, images=images, feats=feats)
+                    new=new, aux=aux, images=images, feats=feats,
+                    extract=extract)
 
 
 def _port_state(run, mp):
@@ -351,10 +353,11 @@ def test_clis_train_and_evaluate_msn(tmp_path, monkeypatch):
         tr_f, (want / want.norm(dim=1, keepdim=True)).numpy(), atol=1e-5)
 
 
-def test_knn_cli_reads_reference_pths(tmp_path, monkeypatch):
+def test_knn_cli_reads_reference_pths(jax_run, tmp_path, monkeypatch):
     """A reference MSN ``.pth`` gives the JAX recipe's target features of
-    the same images (weights read by ``convert_msn``); a reference DINOv2
-    ``.pth`` gives its student's."""
+    the same images (weights read by ``convert_msn``; the JAX features by
+    the fixture's jitted ``extract_features``); a reference DINOv2 ``.pth``
+    gives its student's."""
     tiny(monkeypatch)
     monkeypatch.setitem(port_vit.VIT_CONFIGS, "vit_small_patch16", TINY_VIT)
     monkeypatch.setitem(RECIPES, "dinov2", functools.partial(
@@ -366,12 +369,11 @@ def test_knn_cli_reads_reference_pths(tmp_path, monkeypatch):
                          tmp_path / "msn.pth", tmp_path / "knn_msn")
     params, stats, ema, ema_stats = ti.convert_msn(
         {k: v.numpy() for k, v in sd.items()}, depth=2)
-    jrec = jax_msn.MSNRecipe(img_size=S, dtype=jnp.float32)
     images = np.concatenate([x for x, _ in clf.train_loader])[:10]
     state = JaxTrainState(step=0, params=params, batch_stats=stats,
                           opt_state=None, tx=None, ema_params=ema,
                           ema_batch_stats=ema_stats)
-    want = np.asarray(jrec.extract_features(state, jnp.asarray(images)))
+    want = np.asarray(jax_run["extract"](state, jnp.asarray(images)))
     np.testing.assert_allclose(
         got, want / np.linalg.norm(want, axis=1, keepdims=True), atol=1e-5)
 
