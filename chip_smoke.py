@@ -40,8 +40,10 @@ Phases, in order; any failure raises and exits non-zero:
                 of one MSN step (the head's (64, 2048) and (640, 2048)
                 bf16, twice each), at BYOL's two head inputs (128 and 96 x
                 4096 bf16) and the ResNet-50 trunk's inputs at 96 and 48
-                rows; conv3x3 also at (128 / 96, 56, 56, 64), BYOL's
-                momentum forward.
+                rows, and at SiameseIM's f32 PermuteBN inputs (64 x 79,
+                64 x 275, 64 x 197 rows of 512; at 48 rows a token too);
+                conv3x3 also at (128 / 96, 56, 56, 64), BYOL's momentum
+                forward.
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
@@ -183,6 +185,27 @@ Phases, in order; any failure raises and exits non-zero:
                 Then knn_classification.main --mode DenseCL --model resnet50
                 on the checkpoint: 3 conv3x3 launches a forward, no other;
                 unit-norm 2048-d features, held f32 card against CPU.
+  7m. train-siameseim -- SiameseIM (ViT-B/16 without a final norm, the
+                512-wide decoder of 16 heads, 2 projector and 4 predictor
+                PermuteBN blocks, blockwise mask ratio 0.6, the per-epoch
+                cosine momentum) through mainpretrain.main at 224, bf16,
+                seeded random weights, B=48 for 2 epochs on phase 6's
+                manifest (the last batch of each padded): exactly 16
+                bn_stats launches a step, all on f32 inputs, none of the
+                other three; a finite "Loss =" line each epoch; the momentum
+                branch's PermuteBN statistics in the checkpoint. Then the
+                step timed by StepTimer at B=64 and at 256 where the scaled
+                peak fits (peak memory, GFLOP an image), one step at B=64
+                under torch.profiler; knn_classification.main --mode siaMIM
+                on the checkpoint (no launch, 768-d raw cls features, held
+                f32 card against CPU) and on a reference-layout .pth written
+                from the same weights (the same features).
+  7n. train-sham-v1 -- SHAM v1 (ViT-B/16, the global and local projectors,
+                the cross block; the depth-2 decoder in reconstruction mode)
+                through build_recipe("SHAM_v1") and the Trainer, as the JAX
+                package reaches it, in both modes at 224, bf16, B=48 for 2
+                epochs: no kernel launch, finite global, local (and recon)
+                terms; each mode timed at B=64 and at 256 where it fits.
   8. knn at full size -- ``knn_predict_multi`` on seeded clustered features,
                 103,945 x 2048 gallery, 61 classes, 4096 queries, the seven
                 ks; 512 queries against the port on the CPU; exact ties by
@@ -201,8 +224,10 @@ Phases, in order; any failure raises and exits non-zero:
                 step (ResNet-50), one SupCon step (CIFAR-stem ResNet-18), and
                 one MAE and one SimMIM step (ViT-B/16) from identical
                 weights, view and mask, one DINOv2 and one MSN step at
-                full width (every loss term, and DINOv2's centres), and one
-                BYOL and one DenseCL step (ResNet-50, every loss term).
+                full width (every loss term, and DINOv2's centres), one
+                BYOL and one DenseCL step (ResNet-50, every loss term), one
+                SiameseIM step for each block norm and one SHAM v1 step in
+                each mode (ViT-B/16, every loss term).
 The last four lines are the card's name and power limit again, the serving
 numbers of phases 4d and 4e as one JSON object, the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -640,6 +665,17 @@ def resnet50_bn_shapes(rows: int, size: int) -> list:
     return [(m, c, n) for (m, c), n in shapes.items()]
 
 
+def siameseim_bn_shapes(batch: int) -> list:
+    """(rows, 512, launches) of the f32 PermuteBN inputs of one SiameseIM
+    step at ``batch``: the projector's 2 blocks x 2 norms over cls + the
+    kept 40 % of the tokens, the predictor's 4 x 2 over those + all
+    tokens, the momentum projector's 2 x 2 over cls + all tokens."""
+    n = (SIZE // 16) ** 2
+    keep = 1 + int(n * (1 - 0.6))
+    return [(batch * keep, 512, 4), (batch * (keep + n), 512, 8),
+            (batch * (1 + n), 512, 4)]
+
+
 def resnet18_cifar_bn_shapes(rows: int, size: int) -> list:
     """(M, C, count) of every train-mode BN of a CIFAR-stem ResNet-18
     forward (SupCon's encoder: a 3x3/1 stem and no max pool, so layer1 runs
@@ -975,7 +1011,38 @@ def phase_bn_stats() -> dict:
           f"{2 * CLI_BATCH} rows (BYOL's CLI run) and {CLI_BATCH} (DenseCL's)"
           f": vs twin and run to run: ok, max |err| {err:.3g}")
     torch.cuda.empty_cache()
+    # SiameseIM's PermuteBNs: f32 (rows, 512) over the batch's tokens, 16
+    # launches a step (siameseim_bn_shapes); timed at B=64, checked at the
+    # CLI run's B=48
+    siam = siameseim_bn_shapes(TRAIN_BATCH)
+    siam_k = siam_h = siam_t = 0.0
+    for m, c, n in siam + siameseim_bn_shapes(CLI_BATCH):
+        x = torch.randn(m, c, device=dev, generator=gen) * 2 + 1
+        err = max(err, _check_bn(x, 1e-4, 1e-3))
+        if (m, c, n) not in siam:
+            continue
+        kern, host = _kernel_times(lambda: bn_stats(x))
+        twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
+        siam_k, siam_h, siam_t = (siam_k + n * kern, siam_h + n * host,
+                                  siam_t + n * twin)
+        floor = m * c * 4 / HBM_BYTES_PER_S * 1e3
+        print(f"bn_stats ({m}, {c}) f32 x{n} per SiameseIM step, "
+              f"{blocks(x)}: kernel {kern:.4f} ms on the card (bound "
+              f"{floor:.4f}, {100 * floor / kern:.1f} %), {host:.4f} ms on "
+              f"the host; twin {twin:.4f} ms")
+    values = sum(n * m * c for m, c, n in siam)
+    siam_bound = _bound(4 * values + sum(n * 8 * c for _, c, n in siam),
+                        3.0 * values, "f32")
+    print(f"bn_stats, the 16 PermuteBNs of one SiameseIM step (B="
+          f"{TRAIN_BATCH}, {4 * values / 1e6:.0f} MB of f32): kernel "
+          f"{siam_k:.4f} ms on the card (bound {siam_bound[0]:.4f} by "
+          f"{siam_bound[1]}), {siam_h:.4f} ms on the host; twin "
+          f"{siam_t:.4f} ms; at B={CLI_BATCH} too: vs twin and run to run: "
+          f"ok")
+    torch.cuda.empty_cache()
     return {"max_abs_err": err, "step": (step_k, step_t, step_h),
+            "siameseim_step": (siam_k, siam_t, siam_h),
+            "siameseim_bound": siam_bound,
             "msn_step": (msn_k, msn_t, msn_h), "msn_bound": msn_bound,
             "byol_step": (byol_k, byol_t, byol_h), "byol_bound": byol_bound,
             "tool": (tool_k, tool_t, tool_h), "bound": bound,
@@ -2104,11 +2171,13 @@ def phase_train_vit(workdir: str, train: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_knn_vit(workdir: str, train_vit: dict, mode: str = "SHAM",
-                  self_retrieval: bool = True, width: int = WIDTH) -> dict:
+                  self_retrieval: bool = True, width: int = WIDTH,
+                  norm_tol: float = 1e-3) -> dict:
     """knn_classification.main on a ViT checkpoint of ``mode`` (SHAM in
     phase 7c, mae and simMIM in phases 7g and 7h, dinov2 (ViT-S/16, 384-d)
-    and MSN in phases 7i and 7j); self-retrieval at k=1 is printed, and
-    asserted where ``self_retrieval``."""
+    and MSN in phases 7i and 7j, siaMIM in phase 7m); self-retrieval at k=1
+    is printed, and asserted where ``self_retrieval``. The features' norms
+    must lie within ``norm_tol`` of 1."""
     import numpy as np
     import torch
 
@@ -2155,7 +2224,8 @@ def phase_knn_vit(workdir: str, train_vit: dict, mode: str = "SHAM",
         raise AssertionError(f"features {tr_f.shape} {te_f.shape}")
     for f in (tr_f, te_f):
         norms = np.linalg.norm(f, axis=1)
-        if not (np.isfinite(f).all() and np.abs(norms - 1).max() < 1e-3):
+        if not (np.isfinite(f).all()
+                and np.abs(norms - 1).max() < norm_tol):
             raise AssertionError("features are not finite and unit-norm")
     self_hit = float(np.mean(knn_predict(tr_f, tr_l, te_f, 1) == te_l))
     # how far apart two different images' features lie: the noise of the
@@ -2171,7 +2241,8 @@ def phase_knn_vit(workdir: str, train_vit: dict, mode: str = "SHAM",
         raise AssertionError("k=1 self-retrieval is not 100 %")
     del clf
     torch.cuda.empty_cache()
-    return {"launches": launches, "seconds": seconds}
+    return {"launches": launches, "seconds": seconds,
+            "features": (tr_f, te_f)}
 
 
 # ---------------------------------------------------------------------------
@@ -2980,6 +3051,278 @@ def _eval_densecl(workdir: str, train: dict, save_path: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 7m and 7n: SiameseIM through both CLIs, SHAM v1 through the Trainer
+# ---------------------------------------------------------------------------
+
+SIAMESEIM_EPOCHS = 2
+
+
+def _siameseim_reference_sd(online: dict, ema: dict) -> dict:
+    """The port's SiameseIM weights in the reference ``SiameseIMViT``
+    layout that ``models.convert.siameseim_state_dict`` reads: the online
+    timm encoder at the top level (no encoder mask token, no final norm),
+    the decoder-width ``mask_token``, ``decoder_embed``,
+    ``projector_decoder_blocks``, ``predictor_decoder_blocks``,
+    ``decoder_pred``, ``decoder_pos_mlp``; the momentum encoder, projector
+    and mask token under ``mm_`` (``pos_embed`` is shared)."""
+    renames = (("projector_blocks.", "projector_decoder_blocks."),
+               ("predictor_blocks.", "predictor_decoder_blocks."))
+    out = {}
+    for prefix, sd in (("", online), ("mm_", ema)):
+        for key, value in sd.items():
+            if key.startswith("encoder."):
+                key = key[len("encoder."):]
+                if key == "mask_token" or key.startswith("norm.") or (
+                        prefix and key == "pos_embed"):
+                    continue
+            elif prefix and key.startswith(("predictor_blocks.",
+                                            "decoder_pred.",
+                                            "decoder_pos_mlp.")):
+                continue
+            for ours, theirs in renames:
+                if key.startswith(ours):
+                    key = theirs + key[len(ours):]
+            out[prefix + key] = value.cpu()
+    return out
+
+
+def phase_train_siameseim(workdir: str, train: dict) -> dict:
+    """SiameseIM (ViT-B/16 without a final norm, the 512-wide decoder of 16
+    heads, 2 projector and 4 predictor PermuteBN blocks, mask ratio 0.6
+    blockwise) through mainpretrain.main at 224, bf16, seeded random
+    weights, B=48 for 2 epochs on phase 6's manifest (48 + 48 + 32
+    padded): exactly 16 bn_stats launches a step, all on f32 inputs, and no
+    other kernel; a finite ``Loss =`` line each epoch; the momentum
+    branch's PermuteBN statistics in the checkpoint. Then the step timed by
+    StepTimer at B=64 and at 256 where the B=64 peak scaled by rows fits
+    (peak memory, GFLOP an image by FlopCounterMode), one step at B=64
+    under torch.profiler; then knn_classification.main --mode siaMIM on the
+    checkpoint (no launch, 768-d raw cls features, held f32 card against
+    CPU) and on a reference-layout .pth written from the same weights (the
+    same features)."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.cli import mainpretrain
+    from hairci_torch.models import norm as norm_module
+
+    batch = CLI_BATCH
+    steps = SIAMESEIM_EPOCHS * math.ceil(128 / batch)
+    argv = ["--mode", "siameseim", "--model", "vit_b_16", "--lr", "0.001",
+            "--size", str(SIZE), "--dtype", "bfloat16", "--seed", "42",
+            "--batch_size", str(batch), "--epochs", str(SIAMESEIM_EPOCHS),
+            "--num_workers", "8", "--train_annotation", train["manifest"],
+            "--img_dir", DATASET,
+            "--save_path", os.path.join(workdir, "out_siameseim")]
+    # the dtypes the train-mode BatchNorms hand the stats kernel
+    dtypes = set()
+    stats_fn = norm_module.BNStats
+
+    class Spy:
+        @staticmethod
+        def apply(x):
+            dtypes.add(x.dtype)
+            return stats_fn.apply(x)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    decodes = _decodes()
+    norm_module.BNStats = Spy
+    try:
+        t0 = time.perf_counter()
+        trainer = mainpretrain.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        norm_module.BNStats = stats_fn
+    launches = _counts()
+    _check_decode_route("mainpretrain siameseim", _decodes() - decodes,
+                        SIAMESEIM_EPOCHS * 128)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recipe, state = trainer.recipe, trainer.state
+    module = state.online
+    print(f"mainpretrain siameseim {recipe.backbone} {SIZE}px bf16 B={batch}"
+          f": {steps} steps over {SIAMESEIM_EPOCHS} epochs in {seconds:.1f} s"
+          f" (model build and first-step warmup included); peak memory "
+          f"{peak:.2f} GiB; launches {launches}, bn_stats inputs "
+          f"{sorted(str(d) for d in dtypes)}; momentum by epoch "
+          f"{[recipe.momentum_for_epoch(e) for e in range(SIAMESEIM_EPOCHS)]}")
+    want = {"rotate_shear": 0, "bn_stats": 16 * steps, "conv3x3": 0,
+            "topk_gallery_search": 0}
+    if launches != want or dtypes != {torch.float32}:
+        raise AssertionError(f"siameseim launches {launches} != {want}, "
+                             f"bn_stats inputs {dtypes}")
+    shape = (recipe.backbone, module.encoder.embed_dim,
+             len(module.encoder.blocks), module.encoder.final_norm,
+             module.decoder_embed.out_features,
+             module.projector_blocks[0].attn.num_heads,
+             len(module.projector_blocks), len(module.predictor_blocks),
+             recipe.block_norm, recipe.mask_ratio, recipe.with_blockwise_mask,
+             recipe.num_keep)
+    if shape != ("vit_base_patch16", WIDTH, 12, False, 512, 16, 2, 4,
+                 "permute_bn", 0.6, True, int((SIZE // 16) ** 2 * 0.4)):
+        raise AssertionError(f"siameseim: {shape}")
+    loader = trainer.train_loader
+    if not (loader.pad_last and state.step == steps):
+        raise AssertionError(f"siameseim: pad_last {loader.pad_last}, "
+                             f"{state.step} steps")
+    with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    with open(os.path.join(trainer.save_path, "training_log.txt")) as f:
+        log = f.read()
+    for m in metrics:
+        print(f"siameseim epoch {m['epoch']}: loss {m['loss']:.6f}, "
+              f"{m['images_per_sec']:.1f} img/s (host clock, loader "
+              f"included)")
+    if [m["epoch"] for m in metrics] != list(range(SIAMESEIM_EPOCHS)) or \
+            not all(math.isfinite(m["loss"]) for m in metrics) or \
+            log.count(": Loss = ") != SIAMESEIM_EPOCHS:
+        raise AssertionError(f"siameseim: metrics {metrics}, log {log!r}")
+    ckpt = torch.load(os.path.join(trainer.save_path, "model_ckpt_latest"),
+                      map_location="cpu", weights_only=True)
+    stats = [k for k in ckpt.get("ema", {}) if k.endswith(".running_var")]
+    if set(ckpt) != {"online", "ema", "optimizer", "step", "epoch"} or \
+            len(stats) != 12 or not all(
+                torch.isfinite(ckpt["ema"][k]).all()
+                and not torch.equal(ckpt["ema"][k], ckpt["online"][k])
+                for k in stats):
+        raise AssertionError(f"siameseim checkpoint keys {sorted(ckpt)}, "
+                             f"{len(stats)} EMA PermuteBN variances")
+    print(f"siameseim checkpoint: the momentum branch's {len(stats)} "
+          f"PermuteBN running variances, apart from the online ones")
+    pth = os.path.join(workdir, "siameseim_reference.pth")
+    torch.save({"model": _siameseim_reference_sd(ckpt["online"],
+                                                 ckpt["ema"])}, pth)
+    save_path = trainer.save_path
+    del trainer, recipe, state, module, ckpt
+    torch.cuda.empty_cache()
+
+    timed = {TRAIN_BATCH: _masked_step_times(_momentum_recipe("siameseim"),
+                                             TRAIN_BATCH)}
+    _print_timed("siameseim vit_base_patch16", TRAIN_BATCH,
+                 timed[TRAIN_BATCH])
+    extrapolated = timed[TRAIN_BATCH]["peak_gib"] * CONFIG_BATCH / TRAIN_BATCH
+    if extrapolated < FIT_GIB:
+        timed[CONFIG_BATCH] = _masked_step_times(
+            _momentum_recipe("siameseim"), CONFIG_BATCH, runs=3, warmup=1)
+        _print_timed("siameseim vit_base_patch16", CONFIG_BATCH,
+                     timed[CONFIG_BATCH])
+    else:
+        print(f"train_step siameseim B={CONFIG_BATCH}: does not fit "
+              f"({extrapolated:.1f} GiB scaled from B={TRAIN_BATCH})")
+    images = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (TRAIN_BATCH, 256, 256, 3), dtype=np.uint8)).cuda()
+    profile = _device_breakdown(_momentum_recipe("siameseim"), TRAIN_BATCH,
+                                images, workdir, "siameseim",
+                                timed[TRAIN_BATCH]["ms"])
+    del images
+    # the raw cls token is bf16 in a bf16 run, and the evaluation
+    # normalises it in bf16 as JAX's does: unit norm to bf16's rounding
+    manifest, bf16_tol = train["manifest"], 2 ** -7
+    knn = phase_knn_vit(workdir, {"save_path": save_path,
+                                  "manifest": manifest}, "siaMIM", False,
+                        WIDTH, bf16_tol)
+    _features_card_vs_cpu("siameseim", save_path,
+                          os.path.join(workdir, "test.csv"))
+    ref = phase_knn_vit(workdir, {"save_path": pth, "manifest": manifest},
+                        "siaMIM", False, WIDTH, bf16_tol)
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(knn["features"], ref["features"]))
+    print(f"knn_classification siaMIM on the reference-layout .pth of the "
+          f"same weights: largest feature difference {diff:.3g}")
+    if diff > 1e-6:
+        raise AssertionError(f"siaMIM .pth features differ by {diff}")
+    knn_launches = {k: knn["launches"][k] + ref["launches"][k]
+                    for k in launches}
+    return {"launches": launches, "knn_launches": knn_launches,
+            "timed": timed, "profile": profile, "peak_gib": peak,
+            "seconds": seconds}
+
+
+SHAM_V1_EPOCHS = 2
+
+
+def phase_train_sham_v1(workdir: str, train: dict) -> dict:
+    """SHAM v1 (ViT-B/16, the 1024 -> 256 global and 1024 local projectors,
+    the cross block, mask ratio 0.75; the depth-2 decoder in reconstruction
+    mode) through ``build_recipe("SHAM_v1", sham_mode=...)`` and the
+    ``Trainer``, as the JAX package reaches it (no CLI mode), in both modes
+    at 224, bf16, seeded random weights, B=48 for 2 epochs on phase 6's
+    manifest (the last batch padded): no kernel launch; finite global,
+    local (and recon) terms each epoch. Each mode's step timed by StepTimer
+    at B=64 and at 256 where the B=64 peak scaled by rows fits, with the
+    peak memory and GFLOP an image."""
+    import types
+
+    import torch
+
+    from hairci_torch.data import DataLoader, load_manifest
+    from hairci_torch.ssl import build_recipe
+    from hairci_torch.train.engine import Trainer
+
+    batch = CLI_BATCH
+    steps = SHAM_V1_EPOCHS * math.ceil(128 / batch)
+    launches = {name: 0 for name in _wrappers()}
+    timed = {}
+    for mode in ("embedding", "reconstruction"):
+        recipe = build_recipe("SHAM_v1", img_size=SIZE, sham_mode=mode,
+                              learning_rate=1e-3, dtype=torch.bfloat16)
+        loader = DataLoader(load_manifest(train["manifest"], DATASET), batch,
+                            size=max(SIZE, int(SIZE * 256 / 224)),
+                            mode="raw_resize", shuffle=True, drop_last=False,
+                            pad_last=True, seed=42, num_workers=8)
+        args = types.SimpleNamespace(
+            mode="SHAM_v1", model="vit_b_16", epochs=SHAM_V1_EPOCHS,
+            batch_size=batch, lr=1e-3, temp=0.5, seed=42,
+            save_path=os.path.join(workdir, f"out_sham_v1_{mode}"))
+        torch.cuda.empty_cache()
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer = Trainer(recipe, loader, args, torch.device("cuda"))
+        state = trainer.train()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        print(f"Trainer SHAM_v1 {mode} {recipe.backbone} {SIZE}px bf16 "
+              f"B={batch}: {state.step} steps over {SHAM_V1_EPOCHS} epochs "
+              f"in {seconds:.1f} s (model build and first-step warmup "
+              f"included); launches {counts}")
+        if any(counts.values()) or state.step != steps:
+            raise AssertionError(f"SHAM_v1 {mode}: launches {counts}, "
+                                 f"{state.step} steps")
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        terms = ("loss", "global_loss", "local_loss") + (
+            ("recon_loss",) if mode == "reconstruction" else ())
+        with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        for m in metrics:
+            print(f"SHAM_v1 {mode} epoch {m['epoch']}: "
+                  + ", ".join(f"{k} {m[k]:.6f}" for k in terms))
+        if [m["epoch"] for m in metrics] != list(range(SHAM_V1_EPOCHS)) or \
+                not all(math.isfinite(m[k]) for m in metrics
+                        for k in terms):
+            raise AssertionError(f"SHAM_v1 {mode}: metrics {metrics}")
+        del trainer, state
+        torch.cuda.empty_cache()
+        t = {TRAIN_BATCH: _masked_step_times(recipe, TRAIN_BATCH)}
+        _print_timed(f"SHAM_v1 {mode} vit_base_patch16", TRAIN_BATCH,
+                     t[TRAIN_BATCH])
+        scaled = t[TRAIN_BATCH]["peak_gib"] * CONFIG_BATCH / TRAIN_BATCH
+        if scaled < FIT_GIB:
+            t[CONFIG_BATCH] = _masked_step_times(recipe, CONFIG_BATCH,
+                                                 runs=3, warmup=1)
+            _print_timed(f"SHAM_v1 {mode} vit_base_patch16", CONFIG_BATCH,
+                         t[CONFIG_BATCH])
+        else:
+            print(f"train_step SHAM_v1 {mode} B={CONFIG_BATCH}: does not "
+                  f"fit ({scaled:.1f} GiB scaled from B={TRAIN_BATCH})")
+        timed[mode] = t
+    return {"launches": launches,
+            "knn_launches": {k: 0 for k in launches}, "timed": timed}
+
+
+# ---------------------------------------------------------------------------
 # phase 7f: the baselines' checkpoints through every evaluation
 # ---------------------------------------------------------------------------
 
@@ -3524,9 +3867,92 @@ def phase_train_parity_momentum(mode: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_train_parity_siameseim(block_norm: str) -> None:
+    """One f32 SiameseIM step (ViT-B/16, the full decoder) at 224, B=8, on
+    the card and on the CPU from identical weights, views, boxes and
+    mask."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.ssl import build_recipe
+    from hairci_torch.ssl.siameseim import (
+        relative_pos_embed,
+        sim_two_view_transform,
+    )
+
+    B = 8
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8))
+    rec = build_recipe("siameseim", img_size=SIZE, weight_decay=1e-4,
+                       dtype=torch.float32, block_norm=block_norm)
+    draws = rec.draw(torch.Generator().manual_seed(SEED), B, 256, 256)
+    v1, v2, b1, b2 = sim_two_view_transform(images, draws["views"], SIZE)
+    rel = relative_pos_embed(b1, b2, rec.grid, 2 * rec.decoder_dim)
+    ids_keep = rec.ids_keep(draws, torch.device("cpu"))
+    loss = {}
+    for dev in ("cuda", "cpu"):
+        state = rec.create_state(SEED, B, torch.device(dev))
+        t0 = time.perf_counter()
+        loss[dev] = float(rec.step_on_views(
+            state, v1.to(dev), v2.to(dev), ids_keep.to(dev), rel.to(dev),
+            momentum=0.996)["loss"])
+        print(f"train parity {dev}: siameseim ({block_norm}) step vit_b_16 "
+              f"{SIZE}px B={B} f32: loss {loss[dev]:.7f} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del state
+    rel_diff = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    print(f"train parity siameseim ({block_norm}): relative loss difference "
+          f"{rel_diff:.3g}")
+    if not rel_diff <= 1e-3:
+        raise AssertionError(f"siameseim: card and CPU losses differ by "
+                             f"{rel_diff:.3g}")
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity_sham_v1(mode: str) -> None:
+    """One f32 SHAM v1 step (ViT-B/16) in ``mode`` at 224, B=8, on the card
+    and on the CPU from identical weights, views and mask: every loss
+    term."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.models.masking import random_token_mask_from_noise
+    from hairci_torch.ssl import build_recipe
+
+    B = 8
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(
+        rng.integers(0, 256, (B, 256, 256, 3), dtype=np.uint8))
+    rec = build_recipe("SHAM_v1", img_size=SIZE, sham_mode=mode,
+                       dtype=torch.float32)
+    draws = rec.draw(torch.Generator().manual_seed(SEED), B, 256, 256)
+    views = rec.transform.apply(images, draws["views"])
+    mask = random_token_mask_from_noise(draws["noise"], rec.mask_ratio)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = rec.create_state(SEED, B, torch.device(dev))
+        t0 = time.perf_counter()
+        m = rec.step_on_views(state, *(t.to(dev) for t in (*views, *mask)))
+        out[dev] = {k: float(v) for k, v in m.items()}
+        print(f"train parity {dev}: SHAM_v1 {mode} step vit_b_16 {SIZE}px "
+              f"B={B} f32: {out[dev]} ({time.perf_counter() - t0:.1f} s)")
+        del state
+    rel = max(abs(out["cuda"][k] - v) / max(abs(v), 1e-6)
+              for k, v in out["cpu"].items())
+    print(f"train parity SHAM_v1 {mode}: largest relative loss-term "
+          f"difference {rel:.3g}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"SHAM_v1 {mode}: card and CPU differ by "
+                             f"{rel:.3g}")
+    torch.cuda.empty_cache()
+
+
 def kernel_times(root: str) -> int:
     """``python3 chip_smoke.py --kernel-times [DIR]``: the card's and the
-    host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step,
+    host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step
+    and the 3 f32 PermuteBN shapes of a SiameseIM step (these checked
+    against the twin first),
     of a 64 -> 64 ``Conv2d`` forward without gradient (bf16, 56 x 56), of
     ``topk_gallery_search`` at k=5 over a 103,945 x 768 gallery (f32 and
     bf16) for each Q of ``TOPK_SWEEP_Q`` on the route the package picks
@@ -3569,6 +3995,11 @@ def kernel_times(root: str) -> int:
         card += n * k
         host += n * h
     out["bn_stats"]["step"] = [sum(n for *_, n in shapes), card, host]
+    for m, c, n in siameseim_bn_shapes(TRAIN_BATCH):
+        x = torch.randn(m, c, device="cuda", generator=gen) * 2 + 1
+        _check_bn(x, 1e-4, 1e-3)        # against the twin, twice for bits
+        out["bn_stats"][f"siameseim {m}x{c} f32"] = [
+            n, *_kernel_times(lambda: bn_stats(x))]
     conv = Conv2d(64, 64, 3, 1, 1, dtype=torch.bfloat16).cuda()
     for B in (CLI_BATCH, KNN_BATCH, 256):
         x = _conv_inputs(gen, B, 56, 56, 64, 64, torch.bfloat16)[0]
@@ -3636,6 +4067,8 @@ def main() -> int:
                    for mode in DISTILL}
         momentum = {mode: phase_train_momentum(workdir, train, mode)
                     for mode in MOMENTUM_MODES}
+        siameseim = phase_train_siameseim(workdir, train)
+        sham_v1 = phase_train_sham_v1(workdir, train)
     vit = train_vit["launches"]
     phase_probe_full(phase_knn_full())
     phase_embed(kern["conv3x3"]["times"])
@@ -3649,6 +4082,10 @@ def main() -> int:
         phase_train_parity_distill(mode)
     for mode in MOMENTUM_MODES:
         phase_train_parity_momentum(mode)
+    for block_norm in ("permute_bn", "ln"):
+        phase_train_parity_siameseim(block_norm)
+    for mode in ("embedding", "reconstruction"):
+        phase_train_parity_sham_v1(mode)
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
     conv224 = kern["conv3x3"]["times224"][CLI_BATCH]
@@ -3676,7 +4113,9 @@ def main() -> int:
     # layer1 conv at the kNN CLI's batch, (48, 224, 224, 64) bf16, its *_128
     # numbers BYOL's momentum forward at B=64, (128, 56, 56, 64) bf16;
     # launches_byol / launches_densecl each run's training and (DenseCL)
-    # kNN evaluation, phases 7k, 7l. The top-k's *_d512 numbers
+    # kNN evaluation, phases 7k, 7l; its siameseim_* numbers the 16 f32
+    # PermuteBN inputs of one SiameseIM step at B=64 summed. The top-k's
+    # *_d512 numbers
     # are the same at the face encoder's width, 103,945 x 512 f32 (phase 3),
     # launches_face its route's launches in each face model's serve run
     # (phase 4d), launches_faiss the --faiss_index search's and the demo's
@@ -3758,7 +4197,11 @@ def main() -> int:
          "msn_bound_ms": bn["msn_bound"][0],
          "byol_ms": bn["byol_step"][0], "byol_host_ms": bn["byol_step"][2],
          "byol_plain_ms": bn["byol_step"][1],
-         "byol_bound_ms": bn["byol_bound"][0]},
+         "byol_bound_ms": bn["byol_bound"][0],
+         "siameseim_ms": bn["siameseim_step"][0],
+         "siameseim_host_ms": bn["siameseim_step"][2],
+         "siameseim_plain_ms": bn["siameseim_step"][1],
+         "siameseim_bound_ms": bn["siameseim_bound"][0]},
         {"name": "conv3x3", "route": "cuda",
          "source": "hairci_torch/ops/csrc/conv3x3.cu",
          "replaces": "tools/fused_conv_bn_bench.py:47",
@@ -3782,9 +4225,11 @@ def main() -> int:
     # the masked-image runs (phases 7g, 7h) and DINOv2 (7i) launch none of
     # the four, MSN (7j) bn_stats 4 times a step, BYOL (7k) bn_stats 55 and
     # conv3x3 3 times a step, DenseCL (7l) 53 and 3 a step and conv3x3 3
-    # times a forward of its kNN: each run's launches, its training and its
-    # kNN evaluation together
-    runs_by_mode = {**masked, **distill, **momentum}
+    # times a forward of its kNN, SiameseIM (7m) bn_stats 16 times a step,
+    # SHAM v1 (7n, both modes) none: each run's launches, its training and
+    # its kNN evaluations together
+    runs_by_mode = {**masked, **distill, **momentum,
+                    "siameseim": siameseim, "SHAM_v1": sham_v1}
     for row in rows:
         key = ("topk_gallery_search" if row["name"].startswith("topk")
                else row["name"])

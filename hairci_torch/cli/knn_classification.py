@@ -18,9 +18,9 @@ both loaders, L2-normalized -> one of four evaluations:
   * ``inter_intra_distance``: intra/inter-class variance of both splits ->
     ``variance_analysis_both.txt``.
 
-``--mode`` is SHAM, simclr, simclr_supcon, mae, simMIM, dinov2, MSN or
-DenseCL; siaMIM exits with "not yet ported" (BYOL is no evaluation mode,
-as in the JAX CLI). mae and simMIM are ViT-B/16
+``--mode`` is SHAM, simclr, simclr_supcon, mae, simMIM, dinov2, MSN,
+DenseCL or siaMIM, every mode of the JAX CLI (BYOL is no evaluation mode
+there, and SHAM v1 no mode of either CLI). mae and simMIM are ViT-B/16
 whatever ``--model`` says (resnet18, resnet50 and vit_b_16 all mean
 ``vit_base_patch16``: the JAX package's ``VIT_CONFIGS`` lacks
 ``vit_b_16``). ``--device`` defaults
@@ -45,7 +45,13 @@ checkpoint restores with the online one. A reference DINOv2 ``.pth``
 DenseCL's features are the online trunk's pooled ones; a reference DenseCL
 ``.pth`` (both branches) is read by ``densecl_state_dict``, and is ResNet-50
 only, as ``convert_densecl`` reads it: with another ``--model`` the CLI
-exits naming ``--model resnet50``.
+exits naming ``--model resnet50``. siaMIM is the ``siameseim`` recipe on
+ViT-B/16 whatever ``--model`` says; its features are the online encoder's
+raw cls token (no final norm). A reference SiameseIM ``.pth`` is read by
+``siameseim_state_dict`` into both branches; where its decoder blocks'
+norms (``siameseim_block_norm``) differ from the recipe's, the recipe is
+built again with the file's ``block_norm``, as the JAX CLI does.
+``--SHAM_mode`` is parsed and read by no mode, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -66,6 +72,8 @@ from hairci_torch.models.convert import (
     mae_state_dict,
     msn_state_dict,
     sham2_state_dict,
+    siameseim_block_norm,
+    siameseim_state_dict,
     simmim_state_dict,
     supcon_state_dict,
     torchvision_vit_state_dict,
@@ -111,17 +119,12 @@ def build_eval_parser() -> argparse.ArgumentParser:
     return p
 
 
-PORTED_MODES = ("SHAM", "simclr", "simclr_supcon", "mae", "simMIM",
-                "dinov2", "MSN", "DenseCL")
-
-
-def recipe_for_eval(args):
-    if args.mode not in PORTED_MODES:
-        raise SystemExit(f"mode {args.mode!r} is not yet ported; ported: "
-                         f"{', '.join(PORTED_MODES)}")
+def recipe_for_eval(args, **recipe_kw):
+    mode = "siameseim" if args.mode == "siaMIM" else args.mode
     return build_recipe(
-        args.mode, backbone=args.model, img_size=args.size,
-        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32)
+        mode, backbone=args.model, img_size=args.size,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        **recipe_kw)
 
 
 def _reference_state_dict(args, path: str, model):
@@ -138,7 +141,7 @@ def _reference_state_dict(args, path: str, model):
             f"--model {args.model}")
     readers = {"mae": mae_state_dict, "simMIM": simmim_state_dict,
                "dinov2": dinov2_state_dict, "MSN": msn_state_dict,
-               "DenseCL": densecl_state_dict}
+               "DenseCL": densecl_state_dict, "siaMIM": siameseim_state_dict}
     if args.mode in readers:
         try:
             return readers[args.mode](sd, model)
@@ -169,10 +172,20 @@ def _reference_state_dict(args, path: str, model):
 
 
 def load_state(recipe, args, device: torch.device):
-    """A seeded random state, then the checkpoint's weights over it."""
-    state = recipe.create_state(args.seed, min(args.batch_size, 8), device)
+    """A seeded random state, then the checkpoint's weights over it.
+    Returns (recipe, state): a reference SiameseIM ``.pth`` whose decoder
+    blocks have the other norm rebuilds the recipe with the file's."""
     path = args.checkpoint_path
-    if path and path.endswith((".pth", ".pt")):
+    reference = path and path.endswith((".pth", ".pt"))
+    if reference and args.mode == "siaMIM":
+        try:
+            want = siameseim_block_norm(load_torch_state_dict(path))
+        except ValueError as e:
+            raise SystemExit(f"{path}: {e}") from e
+        if want != recipe.block_norm:
+            recipe = recipe_for_eval(args, block_norm=want)
+    state = recipe.create_state(args.seed, min(args.batch_size, 8), device)
+    if reference:
         sd = _reference_state_dict(args, path, state.online)
         online_sd, ema_sd = sd if isinstance(sd, tuple) else (sd, sd)
         state.online.load_state_dict(online_sd)
@@ -190,7 +203,7 @@ def load_state(recipe, args, device: torch.device):
         logging.info("checkpoint loaded from %s", path)
     else:
         logging.warning("no --checkpoint_path; evaluating random init")
-    return state
+    return recipe, state
 
 
 def main(argv=None) -> Classifier:
@@ -212,7 +225,7 @@ def main(argv=None) -> Classifier:
                           args.batch_size, size=args.size, mode="center_crop",
                           shuffle=False, num_workers=args.num_workers)
                for annotation in (args.train_annotation, args.test_annotation)]
-    state = load_state(recipe, args, device)
+    recipe, state = load_state(recipe, args, device)
 
     def embed_fn(images):
         return recipe.extract_features(state, images)

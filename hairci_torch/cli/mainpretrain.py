@@ -8,15 +8,18 @@ the same flags and YAML.
 simclr_supcon (SupCon on a CIFAR-stem ResNet), mae or simMIM (the masked-
 image recipes, always on ViT-B/16), dinov2 (ViT-S/16 with LayerScale and
 the DINO/iBOT head), MSN (ViT-B/16), BYOL or DenseCL (both ResNet-50, with
-the per-epoch cosine momentum): ``--model`` is not passed to the last six,
-which take ``--epochs`` and the loader's length for their schedules, as in
-the JAX CLI. ``--model`` is resnet18,
-resnet50 or vit_b_16 (for SHAM, ViT-B/16 with block remat); ``--S2R2`` adds
-the Smooth-AP term at weight 1 to SHAM and SimCLR. SHAM drops the last
-partial batch; every other mode pads it to the batch size by repeating its
-last row, as the JAX CLI does. ``--device`` defaults to cuda and raises
-without a card; ``--device cpu`` runs the kernels' plain twins. Other modes
-exit with "not yet ported".
+the per-epoch cosine momentum), or siameseim (ViT-B/16 with the 512-wide
+PermuteBN decoder, the per-epoch cosine momentum): ``--model`` is not
+passed to the last seven, which take ``--epochs`` and the loader's length
+for their schedules, as in the JAX CLI. SHAM v1 is no mode of either
+package's CLI (``build_recipe("SHAM_v1")`` and the ``Trainer``).
+``--model`` is resnet18, resnet50 or vit_b_16 (for SHAM, ViT-B/16 with
+block remat); ``--S2R2`` adds the Smooth-AP term at weight 1 to SHAM and
+SimCLR. SHAM drops the last partial batch; every other mode pads it to the
+batch size by repeating its last row, as the JAX CLI does. ``--device``
+defaults to cuda and raises without a card; ``--device cpu`` runs the
+kernels' plain twins. Every mode of the JAX CLI is ported; an ``args``
+with another mode exits with "not yet ported".
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from hairci_torch.utils.seeding import set_seed
 __all__ = ["PORTED_MODES", "build_recipe_from_args", "main", "set_seed"]
 
 PORTED_MODES = ("SHAM", "simclr", "S2R2", "simclr_supcon", "mae", "simMIM",
-                "dinov2", "MSN", "BYOL", "DenseCL")
+                "dinov2", "MSN", "BYOL", "DenseCL", "siameseim")
 
 
 def build_recipe_from_args(args, num_batches: int):
@@ -61,7 +64,8 @@ def build_recipe_from_args(args, num_batches: int):
         # as in the JAX CLI: the backbone and --temp are not passed, so
         # SupCon trains a CIFAR-stem ResNet-18 at its temperature of 0.07
         return build_recipe(mode, **common)
-    if mode in ("mae", "simMIM", "dinov2", "MSN", "BYOL", "DenseCL"):
+    if mode in ("mae", "simMIM", "dinov2", "MSN", "BYOL", "DenseCL",
+                "siameseim"):
         # as in the JAX CLI: no backbone is passed, so dinov2 trains
         # vit_small_patch16, BYOL and DenseCL resnet50 and the others
         # vit_base_patch16 whatever --model says; the run's length goes to

@@ -51,11 +51,19 @@ branch of a JAX ``BYOLModule`` / ``DenseCLModule`` (params, batch stats).
 lightly's heads under ``projection_head_{global,local}{,_momentum}.``) as
 ``convert_densecl`` does, into the online and the EMA branch. The JAX
 package has no BYOL reader, and neither has the port.
+
+``siameseim_state_dict_from_jax`` / ``sham_v1_state_dict_from_jax`` map
+one branch of a JAX ``SiameseIMModule`` (params and the PermuteBN blocks'
+batch stats) / ``SHAMv1Module``. ``siameseim_state_dict`` reads a
+reference ``SiameseIMViT`` ``.pth`` (the online encoder at the top level,
+its momentum copy under ``mm_``, the decoder stack where present) as
+``convert_siameseim`` + ``merge_params`` do, and ``siameseim_block_norm``
+tells its decoder blocks' norm layout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -678,3 +686,154 @@ def densecl_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
         return out
 
     return branch(""), branch("_momentum")
+
+
+# ---------------------------------------------------------------------------
+# SiameseIM and SHAM v1
+# ---------------------------------------------------------------------------
+
+def _siam_block_from_jax(sd: Dict[str, torch.Tensor], t: str, bp: Mapping,
+                         bs: Optional[Mapping]) -> None:
+    """A JAX decoder ``Block``: LayerNorm, or PermuteBN (``normN.
+    BatchNorm_0`` params and stats) as the port's ``normN.bn.*``."""
+    if "BatchNorm_0" not in bp["norm1"]:
+        _block_from_jax(sd, t, bp)
+        return
+    for mod, dense in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
+                       ("mlp", "fc2")):
+        _put_dense(sd, f"{t}.{mod}.{dense}", bp[mod][dense])
+    for norm in ("norm1", "norm2"):
+        _put_bn(sd, f"{t}.{norm}.bn", bp[norm]["BatchNorm_0"],
+                bs[norm]["BatchNorm_0"])
+
+
+def _cross_block_from_jax(sd: Dict[str, torch.Tensor], t: str,
+                          xb: Mapping) -> None:
+    """A JAX ``CrossBlock``'s params as the port's ``CrossBlock`` under
+    ``t``."""
+    for norm in ("norm_q", "norm_kv", "norm2"):
+        _put_norm(sd, f"{t}.{norm}", xb[norm])
+    for mod, dense in (("xattn", "q"), ("xattn", "kv"), ("xattn", "proj"),
+                       ("mlp", "fc1"), ("mlp", "fc2")):
+        _put_dense(sd, f"{t}.{mod}.{dense}", xb[mod][dense])
+
+
+def siameseim_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                                  ) -> Dict[str, torch.Tensor]:
+    """One branch of a JAX ``SiameseIMModule`` (params, batch_stats) -> the
+    port's ``SiameseIMModule`` state dict (load with ``strict=True``):
+    ``projector_blocks_{i}`` / ``predictor_blocks_{i}`` as
+    ``projector_blocks.{i}`` / ``predictor_blocks.{i}``."""
+    enc = params["encoder"]
+    depth = sum(1 for k in enc if k.startswith("block"))
+    sd = {f"encoder.{k}": v
+          for k, v in vit_state_dict_from_jax(enc, depth).items()}
+    for name in ("decoder_embed", "decoder_pred", "decoder_pos_mlp"):
+        _put_dense(sd, name, params[name])
+    sd["mask_token"] = _t(params["mask_token"])
+    for stack in ("projector_blocks", "predictor_blocks"):
+        i = 0
+        while f"{stack}_{i}" in params:
+            _siam_block_from_jax(sd, f"{stack}.{i}", params[f"{stack}_{i}"],
+                                 batch_stats.get(f"{stack}_{i}"))
+            i += 1
+    return sd
+
+
+def sham_v1_state_dict_from_jax(params: Mapping
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX ``SHAMv1Module`` params -> the port's ``SHAMv1Module`` state dict
+    (load with ``strict=True``): ``decoder_blocks_{i}`` as
+    ``decoder_blocks.{i}``, the cross block's ``xattn`` / ``norm_q`` /
+    ``norm_kv`` / ``norm2`` / ``mlp`` under ``cross_align``."""
+    sd = _backbone_from_jax(params["backbone"], {}, "vit", "backbone.")
+    for name in ("proj_global_fc1", "proj_global_fc2", "proj_local_fc",
+                 "pos_map", "decoder_pred"):
+        _put_dense(sd, name, params[name])
+    for name in ("proj_global_ln", "proj_local_ln"):
+        _put_norm(sd, name, params[name])
+    _cross_block_from_jax(sd, "cross_align", params["cross_align"])
+    i = 0
+    while f"decoder_blocks_{i}" in params:
+        _block_from_jax(sd, f"decoder_blocks.{i}",
+                        params[f"decoder_blocks_{i}"])
+        i += 1
+    sd["mask_token"] = _t(params["mask_token"])
+    return sd
+
+
+def siameseim_block_norm(sd: Mapping[str, torch.Tensor]) -> str:
+    """The decoder blocks' norm layout of a reference SiameseIM checkpoint
+    (``torch_import.siameseim_block_norm``): ``"ln"`` (the ``use_proj_ln``
+    / ``use_pred_ln`` variant) or ``"permute_bn"`` (``normN.bn.*`` keys,
+    the default, also when the file has no decoder blocks). Raises
+    ``ValueError`` on a file that mixes the two: the module uses one norm
+    for the projector and the predictor."""
+    kinds = set()
+    for k in sd:
+        if "decoder_blocks." in k and ".norm1." in k:
+            kinds.add("permute_bn" if ".norm1.bn." in k else "ln")
+    if len(kinds) > 1:
+        raise ValueError(
+            "checkpoint mixes LayerNorm and PermuteBN decoder blocks "
+            "(use_proj_ln != use_pred_ln); SiameseIM here uses one "
+            "block_norm for both")
+    return kinds.pop() if kinds else "permute_bn"
+
+
+def siameseim_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
+                         ) -> Tuple[Dict[str, torch.Tensor],
+                                    Dict[str, torch.Tensor]]:
+    """A reference ``SiameseIMViT`` checkpoint -> (online, momentum) state
+    dicts in the key set of ``model`` (the port's ``SiameseIMModule``, built
+    with the file's ``siameseim_block_norm``), as ``convert_siameseim`` +
+    ``merge_params`` read it over an initial state:
+      * each encoder is a timm ViT, the online one at the top level, the
+        momentum one under ``mm_`` with the shared ``pos_embed``; neither
+        has a final norm (identity) nor an encoder mask token (zeros: the
+        top-level ``mask_token`` is the decoder's);
+      * where ``decoder_embed`` is present: it, the decoder-width
+        ``mask_token`` and the ``projector_decoder_blocks.{i}``, and for
+        the online branch the ``predictor_decoder_blocks.{i}``,
+        ``decoder_pred`` and ``decoder_pos_mlp`` where present; a block's
+        norms are LayerNorms or PermuteBNs (``normN.bn.*`` with running
+        statistics);
+      * everything the file lacks keeps ``model``'s own value (both
+        branches start from the same initial state).
+    Raises ``KeyError`` where a tensor of an encoder or of a present block
+    is missing."""
+    own = model.state_dict()
+
+    def branch(src: Mapping[str, torch.Tensor],
+               online: bool) -> Dict[str, torch.Tensor]:
+        out = dict(own)
+        # the top-level mask token is the decoder's: the encoder's is zeros
+        enc = {k: v for k, v in src.items() if k != "mask_token"}
+        out.update({f"encoder.{k}": v for k, v in timm_vit_state_dict(
+            enc, model.encoder).items()})
+        if "decoder_embed.weight" not in src:
+            return out
+        names = ["decoder_embed"]
+        if online:
+            names += [n for n in ("decoder_pred", "decoder_pos_mlp")
+                      if f"{n}.weight" in src]
+        for name in names:
+            for p in ("weight", "bias"):
+                out[f"{name}.{p}"] = src[f"{name}.{p}"]
+        out["mask_token"] = src["mask_token"].reshape(own["mask_token"].shape)
+        stacks = [("projector_blocks", "projector_decoder_blocks")]
+        if online:
+            stacks.append(("predictor_blocks", "predictor_decoder_blocks"))
+        for ours, theirs in stacks:
+            for i in range(len(getattr(model, ours))):
+                if f"{theirs}.{i}.attn.qkv.weight" not in src:
+                    break
+                prefix = f"{ours}.{i}."
+                for key in own:
+                    if key.startswith(prefix):
+                        out[key] = src[f"{theirs}.{i}.{key[len(prefix):]}"]
+        return out
+
+    mm = {k[3:]: v for k, v in sd.items() if k.startswith("mm_")}
+    mm["pos_embed"] = sd["pos_embed"]
+    return branch(sd, True), branch(mm, False)

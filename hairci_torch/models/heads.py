@@ -3,7 +3,8 @@ or exact-erf GELU as in lightly's MSN head), the SimCLR projection head
 with its widths by backbone (``_PROJ_DIMS`` of ``hairci/ssl/simclr.py``),
 SupCon's ``mlp`` and ``linear`` heads (``hairci/ssl/supcon.py:SupConModule``),
 the DINO head over weight-normalised prototypes (``DINOHead``), BYOL's
-projection and prediction heads, and DenseCL's global and local heads."""
+projection and prediction heads, DenseCL's global and local heads, and the
+token-axis BatchNorm of SiameseIM's decoder blocks (``PermuteBN``)."""
 
 from __future__ import annotations
 
@@ -165,3 +166,21 @@ class DINOHead(nn.Module):
         w = self.prototypes.float()
         w = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-12)
         return torch.matmul(x, w.T)
+
+
+class PermuteBN(nn.Module):
+    """BatchNorm over the (batch, token) axes of a (B, L, C) input
+    (``hairci/models/heads.py:PermuteBN``, the reference's PermuteBN with
+    its ``bn`` child): the port's ``BatchNorm`` in the centred flax form
+    (momentum 0.9, eps 1e-5, biased variance clamped at 0) on the f32
+    (B*L, C) view, so a train-mode call takes its statistics from the
+    bn_stats kernel on a card; the output is cast back to the input's
+    dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.bn = BatchNorm(dim, momentum=0.9, eps=1e-5, centered=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.bn(x.reshape(-1, x.shape[-1]).float())
+        return y.reshape(x.shape).to(x.dtype)

@@ -41,8 +41,14 @@ input of another resolution gets the position table resized bilinearly
 (``resize_pos_embed``, antialiased when it shrinks, as ``jax.image.resize``).
 
 LayerScale (``init_values``) holds timm's ``blocks.N.ls1.gamma`` /
-``ls2.gamma``, the keys ``export_vit`` writes. Not ported yet: the cross
-blocks.
+``ls2.gamma``, the keys ``export_vit`` writes. ``Block(norm="permute_bn")``
+normalises with ``heads.PermuteBN`` (SiameseIM's decoder blocks) in place
+of LayerNorm: batch statistics in training mode, running ones in eval mode.
+``CrossAttention`` / ``CrossBlock`` (SHAM v1's alignment) take their scores
+in f32 whatever the module dtype, as the JAX einsum's
+``preferred_element_type`` does. ``final_norm=False`` (SiameseIM's encoder)
+returns the tokens and the cls feature without the final LayerNorm, which
+is kept in the state dict all the same, as the JAX tree keeps it.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from hairci_torch.models.heads import PermuteBN
 
 REMAT_MODES = (False, True, "full", "selective", "half")
 
@@ -192,6 +200,34 @@ class Attention(nn.Module):
                       self.dtype)
 
 
+class CrossAttention(nn.Module):
+    """Query tokens attend to key/value tokens
+    (``hairci/models/vit.py:CrossAttention``): ``kv`` packs k then v; the
+    scores are f32 for every dtype, the probabilities are cast back to the
+    module dtype for the product with v."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.q = nn.Linear(dim, dim)
+        self.kv = nn.Linear(dim, 2 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, q_tokens: torch.Tensor,
+                kv_tokens: torch.Tensor) -> torch.Tensor:
+        B, Nq, D = q_tokens.shape
+        Nk = kv_tokens.shape[1]
+        head_dim = D // self.num_heads
+        q = _dense(self.q, q_tokens, self.dtype).reshape(
+            B, Nq, self.num_heads, head_dim).transpose(1, 2)
+        k, v = _dense(self.kv, kv_tokens, self.dtype).reshape(
+            B, Nk, 2, self.num_heads, head_dim).permute(2, 0, 3, 1, 4)
+        out = _attention_core(q.float(), k.float(), v)
+        return _dense(self.proj, out.transpose(1, 2).reshape(B, Nq, D),
+                      self.dtype)
+
+
 class LayerScale(nn.Module):
     """x * gamma with an f32 ``gamma`` (the reference pins LayerScale to
     f32), so a bf16 branch comes out in f32."""
@@ -205,13 +241,19 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
+    """Pre-norm self-attention + MLP; ``norm`` is ``"ln"`` or
+    ``"permute_bn"``."""
+
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  remat_core: bool = False,
-                 init_values: Optional[float] = None):
+                 init_values: Optional[float] = None, norm: str = "ln"):
         super().__init__()
-        self.norm1 = LayerNorm(dim)
+        if norm not in ("ln", "permute_bn"):
+            raise ValueError(f"unknown block norm {norm!r}")
+        norm_cls = LayerNorm if norm == "ln" else PermuteBN
+        self.norm1 = norm_cls(dim)
         self.attn = Attention(dim, num_heads, dtype, remat_core)
-        self.norm2 = LayerNorm(dim)
+        self.norm2 = norm_cls(dim)
         self.mlp = Mlp(dim, 4 * dim, dtype)
         if init_values is not None:
             self.ls1 = LayerScale(dim, init_values)
@@ -224,6 +266,25 @@ class Block(nn.Module):
             return x + self.mlp(self.norm2(x))
         x = x + self.ls1(self.attn(self.norm1(x)))
         return x + self.ls2(self.mlp(self.norm2(x)))
+
+
+class CrossBlock(nn.Module):
+    """Pre-norm cross-attention + MLP (``hairci/models/vit.py:CrossBlock``):
+    ``norm_q`` and ``norm_kv`` before ``xattn``, ``norm2`` before ``mlp``."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.norm_q = LayerNorm(dim)
+        self.norm_kv = LayerNorm(dim)
+        self.xattn = CrossAttention(dim, num_heads, dtype)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, 4 * dim, dtype)
+
+    def forward(self, q_tokens: torch.Tensor,
+                kv_tokens: torch.Tensor) -> torch.Tensor:
+        q_tokens = q_tokens + self.xattn(self.norm_q(q_tokens),
+                                         self.norm_kv(kv_tokens))
+        return q_tokens + self.mlp(self.norm2(q_tokens))
 
 
 class PatchEmbed(nn.Module):
@@ -269,7 +330,8 @@ class VisionTransformer(nn.Module):
     sequence (B, K+1, D) in f32 with cls first (K = N, or the kept count of
     ``ids_keep``), or pooled (B, D) features when ``pool=True``: mean of
     patch tokens + fc_norm when ``global_pool``, else the final-normed cls
-    token.
+    token. With ``final_norm=False`` the tokens and the cls token are the
+    last block's, in the module dtype.
 
     Parameters are drawn from ``generator`` (lecun-normal dense and conv
     kernels as in Flax, zero biases, N(0, 0.02) cls/mask tokens, fixed
@@ -285,7 +347,8 @@ class VisionTransformer(nn.Module):
                  global_pool: bool = False,
                  generator: Optional[torch.Generator] = None,
                  param_dtype: Optional[torch.dtype] = None,
-                 remat: Any = False, init_values: Optional[float] = None):
+                 remat: Any = False, init_values: Optional[float] = None,
+                 final_norm: bool = True):
         super().__init__()
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got "
@@ -294,6 +357,7 @@ class VisionTransformer(nn.Module):
         self.depth = depth
         self.dtype = dtype
         self.global_pool = global_pool
+        self.final_norm = final_norm
         self.remat = remat
         self.patch_size = patch_size
         self.grid_size = grid = img_size // patch_size
@@ -349,7 +413,7 @@ class VisionTransformer(nn.Module):
                 tokens = checkpoint(blk, tokens, use_reentrant=False)
             else:
                 tokens = blk(tokens)
-        normed = self.norm(tokens)
+        normed = self.norm(tokens) if self.final_norm else tokens
         if not pool:
             return normed
         if self.global_pool:

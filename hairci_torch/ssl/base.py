@@ -3,7 +3,8 @@
 A recipe owns its modules and exposes ``create_state``, ``train_step`` and
 ``extract_features``; ``build_recipe`` is keyed on the reference ``--mode``
 strings. Ported: ``SHAM``, ``simclr``, ``simclr_supcon``, ``mae``,
-``simMIM``, ``dinov2``, ``MSN``, ``BYOL`` and ``DenseCL``.
+``simMIM``, ``dinov2``, ``MSN``, ``BYOL``, ``DenseCL``, ``siameseim`` and
+``SHAM_v1`` (the last reached through this registry only, as in JAX).
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ def register_recipe(name: str):
 def build_recipe(mode: str, **kwargs):
     # importing a recipe module registers it
     from hairci_torch.ssl import (  # noqa: F401
-        byol, densecl, dinov2, mae, msn, sham, simclr, simmim, supcon)
+        byol, densecl, dinov2, mae, msn, sham, sham_v1, siameseim, simclr,
+        simmim, supcon)
 
     if mode not in RECIPES:
         raise NotImplementedError(

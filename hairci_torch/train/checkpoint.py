@@ -3,9 +3,10 @@
 A checkpoint is one ``torch.save`` file holding the online module's state,
 the optimizer, the step and the epoch, and the EMA module's state, the
 mined-negative cache and the ``extra`` tensors where the state has them
-(SHAM: EMA and cache; DINOv2: EMA and centres; MSN and BYOL: EMA; DenseCL:
-EMA, both banks and their integer pointers, so a resumed run writes the
-ring where it stopped): everything resume needs, restored on the online
+(SHAM: EMA and cache; DINOv2: EMA and centres; MSN, BYOL and SHAM v1:
+EMA; SiameseIM: EMA with its PermuteBN running statistics; DenseCL: EMA,
+both banks and their integer pointers, so a resumed run writes the ring
+where it stopped): everything resume needs, restored on the online
 module's device. SHAM, SimCLR, SupCon, MAE and SimMIM checkpoints keep the key
 sets they always had. The cadence
 follows the JAX engine: ``model_ckpt_<epoch>`` every 50 epochs plus

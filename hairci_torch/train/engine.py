@@ -6,12 +6,14 @@ one host sync per epoch. SHAM is staged on the host (warmup -> mine ->
 mined, with k adapted from the previous epoch's violations at the
 boundary); DINOv2 takes its per-step teacher temperature and momentum at
 the global step ``epoch * len(loader) + batch_id``; a recipe with
-``momentum_for_epoch`` (BYOL, DenseCL) takes that epoch's momentum; every
-other recipe takes the plain step, with the batch's labels. It writes the
+``momentum_for_epoch`` (BYOL, DenseCL, SiameseIM) takes that epoch's
+momentum; every other recipe (SHAM v1 among them) takes the plain step,
+with the batch's labels. It writes the
 JAX engine's ``training_log.txt`` line (SHAM's, or ``Loss =`` for every
 other mode) and ``metrics.jsonl`` (every metric of the step: DINOv2's
 ``dino_loss``, ``ibot_loss`` and ``koleo_loss``, DenseCL's ``global_loss``
-and ``local_loss`` too), and a checkpoint every 50 epochs plus
+and ``local_loss``, SHAM v1's ``global_loss``, ``local_loss`` and
+``recon_loss`` too), and a checkpoint every 50 epochs plus
 ``model_ckpt_latest``; resume restores the EMA, SHAM's negative cache,
 DINOv2's centres and DenseCL's banks too.
 """
@@ -130,7 +132,8 @@ class Trainer:
                         teacher_temp=self.recipe.teacher_temp(gstep),
                         momentum=self.recipe.momentum(gstep))
                 elif hasattr(self.recipe, "momentum_for_epoch"):
-                    # the per-epoch cosine momentum (BYOL, DenseCL)
+                    # the per-epoch cosine momentum (BYOL, DenseCL,
+                    # SiameseIM)
                     metrics = self.recipe.train_step(
                         state, x, gen,
                         momentum=self.recipe.momentum_for_epoch(epoch))

@@ -2,7 +2,8 @@
 
 The JAX pytree becomes one mutable object: the online module, the
 optimizer, the step count and, where the recipe has them, the EMA teacher
-copy (SHAM, DINOv2, MSN, BYOL, DenseCL), the mined-negative cache (SHAM)
+copy (SHAM, DINOv2, MSN, BYOL, DenseCL, SiameseIM, SHAM v1), the
+mined-negative cache (SHAM)
 and ``extra`` tensors (DINOv2's DINO and iBOT centres, DenseCL's memory
 banks and their pointers).
 The port updates it in place (the JAX step returns a new state), which keeps
@@ -34,7 +35,8 @@ class TrainState:
 @torch.no_grad()
 def ema_update(ema: nn.Module, online: nn.Module, momentum: float) -> None:
     """ema <- ema * m + online * (1 - m), over the parameters AND the BN
-    buffers (lightly ``update_momentum``; ``ema_update`` of both trees)."""
+    buffers, the token-axis PermuteBNs' too (lightly ``update_momentum``;
+    ``ema_update`` of both trees)."""
     e = list(ema.parameters()) + list(ema.buffers())
     o = list(online.parameters()) + list(online.buffers())
     # multi-tensor ops: a few launches for the whole model, not three each

@@ -192,11 +192,13 @@ def test_recipe_builds_the_reference_transform_and_heads():
 
 def test_only_byol_and_densecl_take_the_epoch_momentum():
     """The engine's branch is keyed on ``momentum_for_epoch``: no recipe
-    ported before these two may take it (MSN has ``ema_momentum``)."""
+    ported before these two may take it (MSN has ``ema_momentum``); of
+    those ported after them, SiameseIM does, as in JAX, and SHAM v1 (a
+    fixed ``ema_momentum``) does not."""
     build_recipe("BYOL", dtype=torch.float32)       # registers them all
     takers = sorted(n for n, cls in RECIPES.items()
                     if hasattr(cls, "momentum_for_epoch"))
-    assert takers == ["BYOL", "DenseCL"]
+    assert takers == ["BYOL", "DenseCL", "siameseim"]
 
 
 def test_cli_trains_byol_with_the_epoch_momentum(tmp_path, monkeypatch):

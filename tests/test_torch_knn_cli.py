@@ -185,7 +185,8 @@ def test_cli_refuses_what_is_not_ported(slice_, tmp_path):
         out[out.index(flag) + 1] = value
         return out
 
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # siaMIM is ported; this ResNet SHAM file is no SiameseIM .pth
+    with pytest.raises(SystemExit, match="not a reference siaMIM .pth"):
         cli.main(swap("--mode", "siaMIM"))
     # DenseCL is ported, but a reference DenseCL .pth holds ResNet-50 trunks
     # only (convert_densecl's): with --model resnet18 the CLI names the flag

@@ -257,6 +257,7 @@ def test_port_pulls_in_no_jax_at_runtime():
             "'hairci_torch.losses.distill', "
             "'hairci_torch.ssl.byol', 'hairci_torch.ssl.densecl', "
             "'hairci_torch.losses.dense', "
+            "'hairci_torch.ssl.siameseim', 'hairci_torch.ssl.sham_v1', "
             "'hairci_torch.train.schedules'} <= set(mods), mods\n"
             "for m in mods + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"

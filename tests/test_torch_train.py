@@ -170,10 +170,18 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     csv, img_dir = _manifest(tmp_path)
     base = ["--device", "cpu", "--train_annotation", str(csv), "--img_dir",
             str(img_dir), "--save_path", str(tmp_path)]
-    # BYOL and DenseCL are ported (tests/test_torch_byol.py,
-    # tests/test_torch_densecl.py); SiameseIM is not yet
-    with pytest.raises(SystemExit, match="not yet ported"):
-        mainpretrain.main(base + ["--mode", "siameseim"])
+    # every mode of the JAX CLI is ported (SiameseIM last:
+    # tests/test_torch_siameseim.py); SHAM v1 is no mode of either CLI
+    # (the registry and the Trainer reach it: tests/test_torch_sham_v1.py)
+    from hairci.utils.config import PRETRAIN_MODES as JAX_MODES
+
+    assert sorted(mainpretrain.PORTED_MODES) == sorted(JAX_MODES)
+    with pytest.raises(SystemExit):
+        mainpretrain.main(base + ["--mode", "SHAM_v1"])
+    args = parse_pretrain_args(base + ["--mode", "siameseim"])
+    args.mode = "SHAM_v1"
+    with pytest.raises(SystemExit, match="not yet ported.*siameseim"):
+        mainpretrain.build_recipe_from_args(args, num_batches=1)
 
 
 def test_cli_trains_vit_sham_with_s2r2(tmp_path, monkeypatch):
