@@ -43,7 +43,10 @@ Phases, in order; any failure raises and exits non-zero:
                 rows, and at SiameseIM's f32 PermuteBN inputs (64 x 79,
                 64 x 275, 64 x 197 rows of 512; at 48 rows a token too);
                 conv3x3 also at (128 / 96, 56, 56, 64), BYOL's momentum
-                forward.
+                forward, and DualViewHair's f32 shapes: conv3x3 at (32, 56,
+                56, 64) f32 (its EMA teacher, the fma kernel), bn_stats at
+                the 56 f32 BN inputs of its student at B=32, the top-k at
+                103,945 x 256 f32 at Q = 1 (fma) and 256 (mma).
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
@@ -206,6 +209,25 @@ Phases, in order; any failure raises and exits non-zero:
                 package reaches it, in both modes at 224, bf16, B=48 for 2
                 epochs: no kernel launch, finite global, local (and recon)
                 terms; each mode timed at B=64 and at 256 where it fits.
+  7o. train-dualview -- DualViewHair (ResNet-50 at full width, the 256-d
+                embedding and 128-d projection heads, f32 as its CLI always
+                runs) through ``hairci_torch.experiments.dualview.train.main``
+                at 224, B=32, seeded random weights, on the repo's 64 (full,
+                hair) pairs: 2 epochs of infonce with --save_path, then 1
+                epoch each of queue, asymmetric, multiscale + hybrid and
+                partbased: exactly 56 bn_stats launches a step (53 for the
+                enhanced encoders), all f32, and 3 conv3x3 on its fma kernel
+                (the EMA teacher), no rotate, no top-k; a finite loss each
+                epoch. The step timed by StepTimer at B=32 and at 256 where
+                the scaled peak fits (else 128), GFLOP an image, one step
+                under torch.profiler. Then quantitative_eval.main --model
+                dualview on the checkpoint for both towers (a benchmark
+                written from the 64 stems; Recall@K / mAP@K at 10, 20, 50,
+                the top-100 file; no top-k launch at k = 100, 3 conv3x3 an
+                embed batch), the student's embeddings f32 card vs CPU
+                (cosine >= 0.9999), and HairstyleRetrievalModel.retrieve(k=5)
+                at Q = 1 and 64 (one fma and one mma launch, the kernel
+                held against its twin on those queries).
   8. knn at full size -- ``knn_predict_multi`` on seeded clustered features,
                 103,945 x 2048 gallery, 61 classes, 4096 queries, the seven
                 ks; 512 queries against the port on the CPU; exact ties by
@@ -215,6 +237,12 @@ Phases, in order; any failure raises and exits non-zero:
                 objective, objective evaluations an iteration; on 8192 rows
                 the card against the CPU (predictions >= 99.5 % equal, the
                 objective within rtol 1e-4).
+  8c. mining at full size -- ``train.mining`` on the same features:
+                estimate_k_by_pca, run_kmeans (niter 20) and
+                mine_hard_negatives, timed; no anchor its own negative but
+                where JAX's rule leaves one; on 8,192 rows (K = 64) Lloyd card vs CPU from the same k-means++
+                indices, and the mined ids from the same centroids and
+                offsets equal.
   9. embed   -- ResNet-50 eval forward at 224, bf16, batch 64: with the
                 conv3x3 kernel and with those three convs sent to F.conv2d;
                 bf16 on the card against f32 on the CPU.
@@ -227,7 +255,9 @@ Phases, in order; any failure raises and exits non-zero:
                 full width (every loss term, and DINOv2's centres), one
                 BYOL and one DenseCL step (ResNet-50, every loss term), one
                 SiameseIM step for each block norm and one SHAM v1 step in
-                each mode (ViT-B/16, every loss term).
+                each mode (ViT-B/16, every loss term), and one DualViewHair
+                step (ResNet-50) each of infonce, queue, multiscale + hybrid
+                and partbased (every loss term, the queue's rows, the EMA).
 The last four lines are the card's name and power limit again, the serving
 numbers of phases 4d and 4e as one JSON object, the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -260,6 +290,8 @@ TRAIN_BATCH = 64         # the SHAM step's batch on one card (config: 256)
 SIZE = 224
 KERNELS = ("topk", "rotate", "bn_stats", "conv3x3")
 KNN_BATCH = 64           # the embed batch of the full-width kNN phases
+DV_BATCH = 32            # DualViewHair's CLI default batch
+DV_WIDTH = 256           # DualViewHair's embedding width
 CLI_BATCH = 48           # the batch the kNN CLI is driven at (pads a last one)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM: HBM3
 # dense tensor-core bf16 and TF32; f32 FMAs outside the tensor cores
@@ -638,9 +670,30 @@ def phase_topk() -> dict:
                   f"host; twin {twin:.4f} ms; max |score err| "
                   f"{face_err[(route, name)]:.3g}")
     del g512, face
+    # DualViewHair's embedding width, 103,945 x 256 f32: a single query
+    # (fma) and a batched one (mma), held against the twin and timed
+    g256 = unit(GALLERY_ROWS, DV_WIDTH)
+    d256_err, d256_times = {"fma": 0.0, "mma": 0.0}, {}
+    for Q, route in ((1, "fma"), (256, "mma")):
+        q = near(g256, Q)
+        for k in (1, 5, 8):
+            err, _ = _check_topk(q, g256, k, 1e-5, route=route)
+            d256_err[route] = max(d256_err[route], err)
+        twin = _median_ms(lambda: topk_gallery_search_reference(q, g256, 5),
+                          runs=15)
+        kern, host = _kernel_times(lambda: topk_gallery_search(q, g256, 5))
+        bound = _topk_bound(Q, "f32", route, DV_WIDTH)
+        d256_times[Q] = (kern, twin, host, bound, route)
+        print(f"topk Q={Q} N={GALLERY_ROWS} D={DV_WIDTH} k=5 f32, {route} "
+              f"route: {kern:.4f} ms on the card ({100 * bound[0] / kern:.1f}"
+              f" % of its bound {bound[0]:.4f} ms by {bound[1]}), "
+              f"{host:.4f} ms on the host; twin {twin:.4f} ms; max |score "
+              f"err| {d256_err[route]:.3g}")
+    del g256
     torch.cuda.empty_cache()
     return {"max_abs_err": max_err, "times": times, "face_err": face_err,
-            "face_times": face_times}
+            "face_times": face_times, "d256_err": d256_err,
+            "d256_times": d256_times}
 
 
 def resnet50_bn_shapes(rows: int, size: int) -> list:
@@ -1040,7 +1093,32 @@ def phase_bn_stats() -> dict:
           f"{siam_t:.4f} ms; at B={CLI_BATCH} too: vs twin and run to run: "
           f"ok")
     torch.cuda.empty_cache()
+    # DualViewHair's student: the ResNet-50 trunk's 53 train-mode BN inputs
+    # and the head's 3 ((32, 256) x 2, (32, 128)) at the CLI's B=32, all
+    # f32: 56 launches a step
+    dv = resnet50_bn_shapes(DV_BATCH, SIZE) + [(DV_BATCH, 256, 2),
+                                               (DV_BATCH, 128, 1)]
+    dv_k = dv_h = dv_t = 0.0
+    for m, c, n in dv:
+        x = torch.randn(m, c, device=dev, generator=gen) * 2 + 1
+        err = max(err, _check_bn(x, 1e-4, 1e-3))
+        kern, host = _kernel_times(lambda: bn_stats(x))
+        twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
+        dv_k, dv_h, dv_t = dv_k + n * kern, dv_h + n * host, dv_t + n * twin
+        del x
+    count = sum(n for *_, n in dv)
+    values = sum(n * m * c for m, c, n in dv)
+    dv_bound = _bound(4 * values + sum(n * 8 * c for _, c, n in dv),
+                      3.0 * values, "f32")
+    print(f"bn_stats, the {count} train-mode BNs of one DualViewHair student "
+          f"forward (ResNet-50 + head at {DV_BATCH} rows, f32, "
+          f"{4 * values / 1e9:.2f} GB): kernel {dv_k:.3f} ms on the card "
+          f"({100 * dv_bound[0] / dv_k:.1f} % of the bound {dv_bound[0]:.3f} "
+          f"ms by {dv_bound[1]}), {dv_h:.3f} ms on the host; twin {dv_t:.3f} "
+          f"ms; vs twin and run to run: ok")
+    torch.cuda.empty_cache()
     return {"max_abs_err": err, "step": (step_k, step_t, step_h),
+            "dualview_step": (dv_k, dv_t, dv_h), "dualview_bound": dv_bound,
             "siameseim_step": (siam_k, siam_t, siam_h),
             "siameseim_bound": siam_bound,
             "msn_step": (msn_k, msn_t, msn_h), "msn_bound": msn_bound,
@@ -1192,60 +1270,66 @@ def phase_conv3x3() -> dict:
     times = {}
     # the TPU tool's shape, BYOL's momentum forward over both views (2B at
     # B=64 and at the CLI run's 48), the full-width embed's batch of layer1,
-    # and the batch the kNN CLI (and DenseCL's momentum forward) gives the
-    # kernel on the main path
-    for B in (256, 2 * TRAIN_BATCH, 2 * CLI_BATCH, KNN_BATCH, CLI_BATCH):
-        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            x, w, b = _conv_inputs(gen, B, 56, 56, 64, 64, dtype)
-            for stats in (False, True):
-                r = check(x, w, b, stats)
-                if dtype == torch.bfloat16:
-                    least_equal = min(least_equal, r["equal"])
-            # the same result on every run: no atomics in the statistics
-            one, two = conv3x3(x, w, b, stats=True), conv3x3(x, w, b,
-                                                             stats=True)
-            if not all(torch.equal(p, q) for p, q in zip(one, two)):
-                raise AssertionError("conv3x3 differs from run to run")
-            del one, two
-            nbytes = (2 * x.numel() * x.element_size() + 9 * 64 * 64 * 4
-                      + 64 * 4)
-            bound, by = _bound(nbytes, 2.0 * B * 56 * 56 * 9 * 64 * 64, kind)
-            wl, bl = w.to(dtype), b.to(dtype)
-            packed = pack_weights(w, dtype)
-            with torch.no_grad():
-                # weights packed by the caller, as Conv2d hands them over
-                ms, host = _kernel_times(
-                    lambda: conv3x3(x, w, b, packed=packed))
-                pack_ms, pack_host = _kernel_times(
-                    lambda: conv3x3(x, w, b))
-                stats_ms, _ = _kernel_times(
-                    lambda: conv3x3(x, w, b, stats=True, packed=packed))
-                # the one PyTorch call that computes the same function
-                # (cuDNN); timed here, used nowhere in the port
-                lib_ms, lib_host = _kernel_times(
-                    lambda: F.conv2d(x, wl, bl, padding=1))
-                row = {
-                    "ms": ms, "host_ms": host, "packing_ms": pack_ms,
-                    "packing_host_ms": pack_host, "stats_ms": stats_ms,
-                    "plain_ms": _median_ms(lambda: conv3x3_reference(x, w,
-                                                                     b)),
-                    "plain_stats_ms": _median_ms(
-                        lambda: conv3x3_reference(x, w, b, stats=True)),
-                    "library_ms": lib_ms, "library_host_ms": lib_host,
-                    "bound_ms": bound, "bound_by": by,
-                    "route": kernel_route(64, 64, dtype)}
-            times[(B, kind)] = row
-            print(f"conv3x3 ({B}, 56, 56, 64) -> 64 {kind}, the "
-                  f"{row['route']} kernel, {BACK_TO_BACK} calls back to "
-                  f"back: {ms:.4f} ms on the card ({100 * bound / ms:.1f} % "
-                  f"of the bound {bound:.4f} ms, by {by}), {host:.4f} ms on "
-                  f"the host; packing the weights in the call {pack_ms:.4f} "
-                  f"/ {pack_host:.4f} ms; with stats {stats_ms:.4f} ms; twin "
-                  f"{row['plain_ms']:.4f} ms, with stats "
-                  f"{row['plain_stats_ms']:.4f} ms; F.conv2d {lib_ms:.4f} ms "
-                  f"on the card ({100 * bound / lib_ms:.1f} % of the bound), "
-                  f"{lib_host:.4f} ms on the host")
-            del x, w, b, wl, bl, packed
+    # the batch the kNN CLI (and DenseCL's momentum forward) gives the
+    # kernel on the main path, and DualViewHair's EMA teacher at the CLI's
+    # B=32, f32 (the fma kernel)
+    shapes = [(B, dtype, kind)
+              for B in (256, 2 * TRAIN_BATCH, 2 * CLI_BATCH, KNN_BATCH,
+                        CLI_BATCH)
+              for dtype, kind in ((torch.bfloat16, "bf16"),
+                                  (torch.float32, "f32"))]
+    shapes.append((DV_BATCH, torch.float32, "f32"))
+    for B, dtype, kind in shapes:
+        x, w, b = _conv_inputs(gen, B, 56, 56, 64, 64, dtype)
+        for stats in (False, True):
+            r = check(x, w, b, stats)
+            if dtype == torch.bfloat16:
+                least_equal = min(least_equal, r["equal"])
+        # the same result on every run: no atomics in the statistics
+        one, two = conv3x3(x, w, b, stats=True), conv3x3(x, w, b,
+                                                         stats=True)
+        if not all(torch.equal(p, q) for p, q in zip(one, two)):
+            raise AssertionError("conv3x3 differs from run to run")
+        del one, two
+        nbytes = (2 * x.numel() * x.element_size() + 9 * 64 * 64 * 4
+                  + 64 * 4)
+        bound, by = _bound(nbytes, 2.0 * B * 56 * 56 * 9 * 64 * 64, kind)
+        wl, bl = w.to(dtype), b.to(dtype)
+        packed = pack_weights(w, dtype)
+        with torch.no_grad():
+            # weights packed by the caller, as Conv2d hands them over
+            ms, host = _kernel_times(
+                lambda: conv3x3(x, w, b, packed=packed))
+            pack_ms, pack_host = _kernel_times(
+                lambda: conv3x3(x, w, b))
+            stats_ms, _ = _kernel_times(
+                lambda: conv3x3(x, w, b, stats=True, packed=packed))
+            # the one PyTorch call that computes the same function
+            # (cuDNN); timed here, used nowhere in the port
+            lib_ms, lib_host = _kernel_times(
+                lambda: F.conv2d(x, wl, bl, padding=1))
+            row = {
+                "ms": ms, "host_ms": host, "packing_ms": pack_ms,
+                "packing_host_ms": pack_host, "stats_ms": stats_ms,
+                "plain_ms": _median_ms(lambda: conv3x3_reference(x, w,
+                                                                 b)),
+                "plain_stats_ms": _median_ms(
+                    lambda: conv3x3_reference(x, w, b, stats=True)),
+                "library_ms": lib_ms, "library_host_ms": lib_host,
+                "bound_ms": bound, "bound_by": by,
+                "route": kernel_route(64, 64, dtype)}
+        times[(B, kind)] = row
+        print(f"conv3x3 ({B}, 56, 56, 64) -> 64 {kind}, the "
+              f"{row['route']} kernel, {BACK_TO_BACK} calls back to "
+              f"back: {ms:.4f} ms on the card ({100 * bound / ms:.1f} % "
+              f"of the bound {bound:.4f} ms, by {by}), {host:.4f} ms on "
+              f"the host; packing the weights in the call {pack_ms:.4f} "
+              f"/ {pack_host:.4f} ms; with stats {stats_ms:.4f} ms; twin "
+              f"{row['plain_ms']:.4f} ms, with stats "
+              f"{row['plain_stats_ms']:.4f} ms; F.conv2d {lib_ms:.4f} ms "
+              f"on the card ({100 * bound / lib_ms:.1f} % of the bound), "
+              f"{lib_host:.4f} ms on the host")
+        del x, w, b, wl, bl, packed
     # the CIFAR-stem ResNet-18's layer1 (SupCon's eval forward): 224 x 224,
     # 16x the pixels of ResNet-50's layer1; 47 leaves a ragged last wave
     times224 = {}
@@ -2615,8 +2699,8 @@ def _distill_recipe(mode: str, B: int, **kw):
                         steps_per_epoch=128 // B, **kw)
 
 
-def _print_timed(what: str, B: int, t: dict) -> None:
-    print(f"train_step {what} bf16 B={B}: p50 {t['ms']:.2f} ms, mean "
+def _print_timed(what: str, B: int, t: dict, dtype: str = "bf16") -> None:
+    print(f"train_step {what} {dtype} B={B}: p50 {t['ms']:.2f} ms, mean "
           f"{t['mean_ms']:.2f} ms ({B * 1e3 / t['ms']:.1f} img/s), "
           f"StepTimer, 10 after 3; {t['gflop_per_image']:.2f} GFLOP an image "
           f"(FlopCounterMode, forward and backward), {t['tflop_s']:.1f} "
@@ -3323,6 +3407,259 @@ def phase_train_sham_v1(workdir: str, train: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7o: DualViewHair through its train and evaluation CLIs
+# ---------------------------------------------------------------------------
+
+DV_RUNS = ((["--epochs", "2"], 56),
+           (["--epochs", "1", "--loss", "queue"], 56),
+           (["--epochs", "1", "--loss", "asymmetric"], 56),
+           (["--epochs", "1", "--encoder", "multiscale", "--loss", "hybrid"],
+            53),
+           (["--epochs", "1", "--encoder", "partbased"], 53))
+
+
+class _DualViewSteps:
+    """DualViewHair's infonce step in the interface of the timing helpers
+    (``create_state(seed, B, device)``, ``train_step(state, images, gen)``):
+    the same uint8 batch as the student's and the teacher's images."""
+
+    def __init__(self):
+        from hairci_torch.experiments.dualview.models import (
+            DualViewHairModel)
+        from hairci_torch.experiments.dualview.train import make_train_step
+
+        self.model = DualViewHairModel()
+        self.step = make_train_step(self.model, "infonce")
+
+    def create_state(self, seed, B, device):
+        return self.model.create_state(seed, device)
+
+    def train_step(self, state, images, gen):
+        from hairci_torch.experiments.dualview.train import _student_draw
+
+        B, H, W, _ = images.shape
+        return self.step(state, {"full": images, "hair": images},
+                         _student_draw(gen, B, H, W))
+
+
+def phase_train_dualview(workdir: str) -> dict:
+    """DualViewHair at ResNet-50 full width, 224, f32, seeded random weights,
+    on the repo's 64 (full, hair) pairs through
+    ``hairci_torch.experiments.dualview.train.main``: 2 epochs of infonce at
+    B=32 with ``--save_path``, then 1 epoch each of queue, asymmetric,
+    multiscale + hybrid and partbased; exactly 56 bn_stats launches a step
+    for the ResNet encoder and 53 for the other two, all on f32 inputs, 3
+    conv3x3 (its f32 fma kernel: the EMA teacher's forward), no rotate, no
+    top-k; a finite loss each epoch. The step timed by StepTimer at B=32 and
+    at 256 where the scaled peak fits (else 128), GFLOP an image, one step
+    under torch.profiler. Then ``quantitative_eval.main --model dualview``
+    on the checkpoint for both towers (a benchmark of the 64 stems: Recall@K
+    / mAP@K at 10, 20, 50 and the top-100 file; no top-k launch at k = 100,
+    3 conv3x3 an embed batch), the same features on the CPU (cosine >=
+    0.9999), and ``HairstyleRetrievalModel.retrieve(k=5)`` at Q = 1 and 64
+    (one fma and one mma launch, the kernel held against its twin)."""
+    import numpy as np
+    import torch
+
+    import hairci_torch.models.norm as norm_module
+    from hairci_torch.experiments.dualview import quantitative_eval, train
+    from hairci_torch.experiments.dualview.data import discover_pairs
+    from hairci_torch.ops.conv3x3 import conv3x3
+
+    pairs = discover_pairs(DATASET)
+    if len(pairs) != 64:
+        raise AssertionError(f"{len(pairs)} (full, hair) pairs in {DATASET}")
+    steps_per_epoch = 64 // DV_BATCH
+    save_path = os.path.join(workdir, "out_dualview")
+    # the dtypes the train-mode BatchNorms hand the stats kernel, counted
+    dtypes = {}
+    stats_fn = norm_module.BNStats
+
+    class Spy:
+        @staticmethod
+        def apply(x):
+            dtypes[x.dtype] = dtypes.get(x.dtype, 0) + 1
+            return stats_fn.apply(x)
+
+    launches, seconds = {name: 0 for name in _wrappers()}, 0.0
+    for extra, bn_per_step in DV_RUNS:
+        argv = ["--data_root", DATASET, "--batch_size", str(DV_BATCH),
+                "--size", str(SIZE)] + extra
+        if extra[1] == "2":
+            argv += ["--save_path", save_path]
+        epochs = int(extra[1])
+        steps = epochs * steps_per_epoch
+        torch.cuda.empty_cache()
+        _reset_counts()
+        fma_before = conv3x3.routes["fma"]
+        norm_module.BNStats = Spy
+        t0 = time.perf_counter()
+        try:
+            out = train.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            norm_module.BNStats = stats_fn
+        seconds += time.perf_counter() - t0
+        counts = _counts()
+        fma = conv3x3.routes["fma"] - fma_before
+        print(f"dualview train {' '.join(extra)}: ResNet-50 {SIZE}px f32 "
+              f"B={DV_BATCH}, {out['state'].step} steps in "
+              f"{time.perf_counter() - t0:.1f} s (model build and first-step "
+              f"warmup included); launches {counts} (conv3x3 fma {fma}); "
+              f"loss by epoch {out['history']}")
+        want = {"rotate_shear": 0, "bn_stats": bn_per_step * steps,
+                "conv3x3": 3 * steps, "topk_gallery_search": 0}
+        if counts != want or fma != 3 * steps or out["state"].step != steps:
+            raise AssertionError(f"dualview {extra}: launches {counts}, fma "
+                                 f"{fma}, {out['state'].step} steps; want "
+                                 f"{want}")
+        if len(out["history"]) != epochs or not all(
+                math.isfinite(v) for v in out["history"]):
+            raise AssertionError(f"dualview {extra}: {out['history']}")
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        del out
+    if set(dtypes) != {torch.float32}:
+        raise AssertionError(f"dualview bn_stats inputs by dtype {dtypes}")
+    print(f"dualview bn_stats inputs: {dtypes[torch.float32]} launches, all "
+          f"f32")
+    ckpt = os.path.join(save_path, "dualview_latest")
+    keys = set(torch.load(ckpt, map_location="cpu", weights_only=True))
+    if keys != {"online", "ema", "optimizer", "step", "epoch"}:
+        raise AssertionError(f"dualview checkpoint keys {sorted(keys)}")
+
+    steps = _DualViewSteps()
+    images = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (256, SIZE, SIZE, 3), dtype=np.uint8)).cuda()
+    timed = {DV_BATCH: _masked_step_times(steps, DV_BATCH,
+                                          images[:DV_BATCH])}
+    _print_timed("dualview resnet50", DV_BATCH, timed[DV_BATCH], "f32")
+    for B in (256, 128):
+        scaled = timed[DV_BATCH]["peak_gib"] * B / DV_BATCH
+        if scaled < FIT_GIB:
+            timed[B] = _masked_step_times(steps, B, images[:B], runs=5)
+            _print_timed("dualview resnet50", B, timed[B], "f32")
+            break
+        print(f"train_step dualview B={B}: does not fit ({scaled:.1f} GiB "
+              f"scaled from B={DV_BATCH})")
+    profile = _device_breakdown(steps, DV_BATCH, images[:DV_BATCH], workdir,
+                                "dualview", timed[DV_BATCH]["ms"])
+    del images, steps
+    torch.cuda.empty_cache()
+
+    # the evaluation CLI on the checkpoint, both towers
+    stems = sorted(os.path.basename(f)[:-len(".jpg")] for f, _ in pairs)
+    bench = [{"query_image": f"{s}.jpg",
+              "ground_truth": [f"{s}.jpg", f"{stems[(i + 1) % 64]}.jpg"]}
+             for i, s in enumerate(stems)]
+    bench_path = os.path.join(workdir, "dualview_bench.json")
+    with open(bench_path, "w") as f:
+        json.dump(bench, f)
+    eval_launches = {name: 0 for name in _wrappers()}
+    results = {}
+    for tower in ("student", "teacher"):
+        out_json = os.path.join(workdir, f"dualview_top100_{tower}.json")
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = quantitative_eval.main([
+            "--db_path", DATASET, "--benchmark", bench_path,
+            "--ckpt_path", ckpt, "--model", "dualview", "--tower", tower,
+            "--size", str(SIZE), "--out", out_json])
+        torch.cuda.synchronize()
+        counts = _counts()
+        forwards = 1 + len(bench)      # one database batch of 64, 1 a query
+        print(f"quantitative_eval --model dualview --tower {tower}: "
+              f"{time.perf_counter() - t0:.1f} s; Recall "
+              f"{res['Recall']}, mAP {res['mAP']}; launches {counts}")
+        want = {"rotate_shear": 0, "bn_stats": 0, "conv3x3": 3 * forwards,
+                "topk_gallery_search": 0}
+        if counts != want:
+            raise AssertionError(f"dualview eval launches {counts} != {want}")
+        with open(out_json) as f:
+            top = json.load(f)
+        if (len(top) != 64 or any(len(r["top100"]) != 64 for r in top)
+                or res["total_queries"] != 64 or res["Recall"][10] != 1.0):
+            raise AssertionError(f"dualview eval {tower}: {res}")
+        eval_launches = {k: eval_launches[k] + v for k, v in counts.items()}
+        results[tower] = res
+
+    # the same student features on the CPU
+    feats = {}
+    paths = [h for _, h in pairs[:16]]
+    for dev in ("cuda", "cpu"):
+        _, embed = quantitative_eval._dualview_embedder(ckpt, "resnet", SIZE,
+                                                        device=dev)
+        feats[dev] = np.stack([embed(p) for p in paths]).astype(np.float64)
+    a, b = feats["cuda"], feats["cpu"]
+    cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+    print(f"dualview student embeddings, 16 hair crops, f32 card vs f32 CPU: "
+          f"cosine min {cos.min():.7f}")
+    if not cos.min() >= 0.9999:
+        raise AssertionError(f"dualview features card vs CPU: {cos.min()}")
+    retrieve = _dualview_retrieve(ckpt, pairs)
+    eval_launches["topk_gallery_search"] += 2
+    return {"launches": launches, "knn_launches": eval_launches,
+            "timed": timed, "profile": profile, "seconds": seconds,
+            "results": results, "cos_min": float(cos.min()),
+            "retrieve": retrieve}
+
+
+def _dualview_retrieve(ckpt: str, pairs: list) -> dict:
+    """``HairstyleRetrievalModel`` over the checkpoint's teacher: the 64
+    hair crops as the database, then ``retrieve(k=5)`` of one crop (the
+    top-k's fma route) and of all 64 (its mma route): one launch each,
+    every crop its own first hit, and the kernel held against its twin on
+    those queries as phase 3 holds it."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.aug import ops
+    from hairci_torch.data.loader import decode_image
+    from hairci_torch.eval.features import l2_normalize
+    from hairci_torch.experiments.dualview.models import (
+        DualViewHairModel,
+        HairstyleRetrievalModel,
+    )
+    from hairci_torch.ops.topk import topk_gallery_search
+    from hairci_torch.train.checkpoint import restore_checkpoint
+
+    model = DualViewHairModel()
+    state = model.create_state(0, "cuda")
+    restore_checkpoint(ckpt, state)
+    paths = [h for _, h in pairs]
+    images = ops.normalize(ops.to_float(torch.from_numpy(np.stack(
+        [decode_image(p, "raw_resize", SIZE) for p in paths])))).numpy()
+    retr = HairstyleRetrievalModel(model, state)
+    index = retr.build_database(images, paths)
+    out = {}
+    for Q, route in ((1, "fma"), (64, "mma")):
+        _reset_counts()
+        _, got = retr.retrieve(images[:Q], k=5)
+        torch.cuda.synchronize()
+        routes = dict(topk_gallery_search.routes)
+        launched = topk_gallery_search.launches
+        print(f"HairstyleRetrievalModel.retrieve Q={Q} k=5 over 64 x "
+              f"{DV_WIDTH}: launches {launched}, routes {routes}")
+        if (launched != 1 or routes[route] != 1
+                or [r[0] for r in got] != paths[:Q]):
+            raise AssertionError(f"dualview retrieve Q={Q}: {routes}, "
+                                 f"first hits {[r[0] for r in got][:4]}")
+        # the kernel against the twin on the same queries: the scores
+        # within 1e-5, an index apart only where the twin's neighbouring
+        # scores lie within 1e-5 (the barely trained teacher's embeddings
+        # of 64 crops lie close together)
+        q = l2_normalize(model.get_embeddings(
+            state, torch.from_numpy(images[:Q]), use_teacher=True))
+        err, _ = _check_topk(q.contiguous(), index.embeddings, 5, 1e-5,
+                             route=route)
+        print(f"  the kernel vs the twin on those queries: max |score "
+              f"err| {err:.3g}; indices equal where the scores part")
+        out[Q] = (route, err)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7f: the baselines' checkpoints through every evaluation
 # ---------------------------------------------------------------------------
 
@@ -3567,6 +3904,87 @@ def phase_probe_full(data: tuple) -> dict:
         raise AssertionError("the probe on the card and on the CPU disagree")
     return {"seconds": seconds, "fit_seconds": fit_s, "info": info,
             "accuracy": acc, "agree": agree, "objective_rel": rel}
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: hard-negative mining at the gallery size
+# ---------------------------------------------------------------------------
+
+MINING_CPU_ROWS, MINING_CPU_K = 8192, 64
+
+
+def phase_mining_full(data: tuple) -> dict:
+    """``train.mining`` on phase 8's seeded clustered 103,945 x 2048
+    features on the card: ``estimate_k_by_pca``, ``run_kmeans`` (niter 20)
+    and ``mine_hard_negatives``, each timed (host clock, synchronised); no
+    anchor its own negative but where JAX's rule leaves one (the anchor is
+    the first candidate of its second-nearest centroid, the fallback of a
+    self pick). On an 8,192-row subsample (K = 64), Lloyd from
+    the same k-means++ indices on the card and on the CPU, then the mining
+    with the same centroids and offsets: the same ids."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.train import mining
+
+    X = torch.from_numpy(data[0]).cuda()
+    times = {}
+    t0 = time.perf_counter()
+    k, m_star = mining.estimate_k_by_pca(X)
+    times["pca_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cents, assign = mining.run_kmeans(X, k, niter=20, seed=SEED)
+    torch.cuda.synchronize()
+    times["kmeans_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hard = mining.mine_hard_negatives(X, cents, seed=SEED)
+    torch.cuda.synchronize()
+    times["mine_s"] = time.perf_counter() - t0
+    sizes = torch.bincount(assign, minlength=k)
+    print(f"mining {tuple(X.shape)} f32 on the card: estimate_k_by_pca K={k}"
+          f" (m*={m_star}) in {times['pca_s']:.3f} s; run_kmeans niter 20 in "
+          f"{times['kmeans_s']:.3f} s ({int((sizes > 0).sum())} of {k} "
+          f"clusters filled, largest {int(sizes.max())}); "
+          f"mine_hard_negatives in {times['mine_s']:.3f} s")
+    # an anchor is its own negative only where the reference's rule leaves
+    # it: it is the first candidate of its second-nearest centroid (the
+    # fallback of a self pick), as in JAX (ROADMAP.md section 3)
+    own = torch.arange(X.shape[0], device=X.device)
+    d_ac = mining._sq_dists(X, cents)
+    first = mining._stable_smallest(d_ac.T, 5)[
+        mining._stable_smallest(d_ac, 2)[:, 1], 0]
+    del d_ac
+    selfs = hard == own
+    print(f"mining: {int(selfs.sum())} anchors their own negative, each the "
+          f"first candidate of its second-nearest centroid; "
+          f"{int((first == own).sum())} anchors are such a first candidate")
+    if hard.shape != own.shape or bool((selfs & (first != own)).any()):
+        raise AssertionError("mining: an anchor is its own negative")
+    # card against CPU on a subsample, from the same draws
+    sub = X[:MINING_CPU_ROWS]
+    draws = mining.draw_kmeanspp(torch.Generator().manual_seed(SEED),
+                                 MINING_CPU_ROWS, MINING_CPU_K)
+    init = mining._kmeanspp_init(sub, draws, MINING_CPU_K)
+    c_card, a_card = mining._lloyd(sub, init, MINING_CPU_K, 20)
+    t0 = time.perf_counter()
+    c_cpu, a_cpu = mining._lloyd(sub.cpu(), init.cpu(), MINING_CPU_K, 20)
+    cpu_s = time.perf_counter() - t0
+    same = float((a_card.cpu() == a_cpu).float().mean())
+    cdiff = float((c_card.cpu() - c_cpu).abs().max())
+    offs = mining.draw_mining(torch.Generator().manual_seed(SEED),
+                              MINING_CPU_ROWS)
+    ids_card = mining._mine(sub, c_card, offs).cpu()
+    ids_cpu = mining._mine(sub.cpu(), c_card.cpu(), offs)
+    print(f"mining {MINING_CPU_ROWS} rows, K={MINING_CPU_K}, card vs CPU "
+          f"(CPU Lloyd {cpu_s:.2f} s): assignments {100 * same:.3f} % equal, "
+          f"centroids within {cdiff:.3g}; mined ids from the same centroids "
+          f"and offsets: {int((ids_card == ids_cpu).sum())} of "
+          f"{MINING_CPU_ROWS} equal")
+    if not (same >= 0.999 and torch.equal(ids_card, ids_cpu)):
+        raise AssertionError("mining: card and CPU differ")
+    del X, sub
+    torch.cuda.empty_cache()
+    return {"k": k, "m_star": m_star, **times}
 
 
 # ---------------------------------------------------------------------------
@@ -3948,6 +4366,78 @@ def phase_train_parity_sham_v1(mode: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: one f32 DualViewHair step on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+DV_PARITY = (("resnet", "infonce"), ("resnet", "queue"),
+             ("multiscale", "hybrid"), ("partbased", "infonce"))
+
+
+def phase_train_parity_dualview(encoder: str, loss: str) -> None:
+    """One f32 DualViewHair step (ResNet-50 at 224, B=8; the queue a seeded
+    4096 x 128 bank) on the card and on the CPU from identical weights,
+    images and draws: every loss term, the queue's new rows, and the EMA
+    taken before the step, within rtol 1e-3."""
+    import numpy as np
+    import torch
+
+    from hairci_torch.experiments.dualview.losses import MomentumQueue
+    from hairci_torch.experiments.dualview.models import DualViewHairModel
+    from hairci_torch.experiments.dualview.train import (
+        _student_draw,
+        make_train_step,
+    )
+
+    B = 8
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(rng.integers(0, 256, (B, SIZE, SIZE, 3),
+                                              dtype=np.uint8))
+             for k in ("full", "hair")}
+    bank0 = torch.from_numpy(rng.normal(size=(4096, 128)).astype(np.float32))
+    draws = _student_draw(torch.Generator().manual_seed(SEED), B, SIZE, SIZE)
+    model = DualViewHairModel(encoder=encoder)
+    queue = MomentumQueue(128) if loss == "queue" else None
+    step = make_train_step(model, loss, queue)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = model.create_state(SEED, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        if queue:
+            m, bank, ptr = step(state, b, draws, bank0.to(dev),
+                                torch.tensor(4092, device=dev))
+            m["bank_rows"] = bank[[4092, 4093, 4094, 4095, 0, 1, 2, 3]]
+        else:
+            m = step(state, b, draws)
+        ema = torch.cat([v.detach().float().reshape(-1).cpu()
+                         for v in state.ema.state_dict().values()])
+        out[dev] = ({k: v.detach().cpu().double() for k, v in m.items()},
+                    ema, {n: p.grad.detach().cpu()
+                          for n, p in state.online.named_parameters()})
+        print(f"train parity {dev}: dualview {encoder} {loss} step resnet50 "
+              f"{SIZE}px B={B} f32: " + ", ".join(
+                  f"{k} {float(v):.7f}" for k, v in m.items()
+                  if v.dim() == 0)
+              + f" ({time.perf_counter() - t0:.1f} s)")
+        del state
+    terms = {k: float((out["cuda"][0][k] - v).abs().max()
+                      / max(float(v.abs().max()), 1e-6))
+             for k, v in out["cpu"][0].items()}
+    ema_rel = float((out["cuda"][1] - out["cpu"][1]).abs().max()
+                    / out["cpu"][1].abs().max())
+    top = max(float(g.abs().max()) for g in out["cpu"][2].values())
+    gmax = max(float((out["cuda"][2][n] - g).abs().max())
+               for n, g in out["cpu"][2].items()) / top
+    print(f"train parity dualview {encoder} {loss}: relative differences "
+          f"{terms}; EMA {ema_rel:.3g}; largest gradient difference "
+          f"{gmax:.3g} of the largest entry (printed, not held)")
+    if not (max(terms.values()) <= 1e-3 and ema_rel <= 1e-3):
+        raise AssertionError(f"dualview {encoder} {loss}: card and CPU "
+                             f"differ: {terms}, EMA {ema_rel:.3g}")
+    torch.cuda.empty_cache()
+
+
 def kernel_times(root: str) -> int:
     """``python3 chip_smoke.py --kernel-times [DIR]``: the card's and the
     host's time of the bn_stats wrapper over the 55 BN inputs of a SHAM step
@@ -4069,8 +4559,12 @@ def main() -> int:
                     for mode in MOMENTUM_MODES}
         siameseim = phase_train_siameseim(workdir, train)
         sham_v1 = phase_train_sham_v1(workdir, train)
+        dualview = phase_train_dualview(workdir)
     vit = train_vit["launches"]
-    phase_probe_full(phase_knn_full())
+    features = phase_knn_full()
+    phase_probe_full(features)
+    phase_mining_full(features)
+    del features
     phase_embed(kern["conv3x3"]["times"])
     phase_train_parity()
     phase_train_parity("vit_b_16", s2r2_weight=1.0)
@@ -4086,10 +4580,13 @@ def main() -> int:
         phase_train_parity_siameseim(block_norm)
     for mode in ("embedding", "reconstruction"):
         phase_train_parity_sham_v1(mode)
+    for encoder, loss in DV_PARITY:
+        phase_train_parity_dualview(encoder, loss)
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
     conv224 = kern["conv3x3"]["times224"][CLI_BATCH]
     conv128 = kern["conv3x3"]["times"][(2 * TRAIN_BATCH, "bf16")]
+    conv_dv = kern["conv3x3"]["times"][(DV_BATCH, "f32")]
     # ms (the card's time, calls back to back), host_ms (the wrapper's time
     # on the host), plain_ms, bound_ms and library_ms of a kernel are at one
     # shape: the top-k at Q=1 (its fma route) and, as
@@ -4119,7 +4616,13 @@ def main() -> int:
     # are the same at the face encoder's width, 103,945 x 512 f32 (phase 3),
     # launches_face its route's launches in each face model's serve run
     # (phase 4d), launches_faiss the --faiss_index search's and the demo's
-    # retrieval's (phase 4e; both single queries, the fma route).
+    # retrieval's (phase 4e; both single queries, the fma route); its *_d256
+    # numbers the same at DualViewHair's width, 103,945 x 256 f32. bn_stats'
+    # dualview_* numbers are the 56 f32 BN inputs of one DualViewHair
+    # student forward at B=32 summed, conv3x3's *_f32_32 numbers its EMA
+    # teacher's layer1 conv at B=32, (32, 56, 56, 64) f32 (the fma kernel);
+    # launches_dualview each kernel's launches in phase 7o (its five training
+    # runs, both evaluation towers and the two retrievals).
     topk_rows = []
     for name, route, Q in (("topk_gallery_search", "fma", 1),
                            ("topk_gallery_search_batched", "mma", 256)):
@@ -4127,6 +4630,7 @@ def main() -> int:
         if took != route:
             raise AssertionError(f"topk at Q={Q} took the {took} route")
         d512 = topk["face_times"][(Q, "f32")]
+        d256 = topk["d256_times"][Q]
         topk_rows.append(
             {"name": name, "route": "cuda",
              "source": "hairci_torch/ops/csrc/topk.cu",
@@ -4145,7 +4649,11 @@ def main() -> int:
              "max_abs_err_d512": topk["face_err"][(route, "f32")],
              "ms_d512": d512[0], "host_ms_d512": d512[2],
              "plain_ms_d512": d512[1], "bound_ms_d512": d512[3][0],
-             "bound_by_d512": d512[3][1]})
+             "bound_by_d512": d512[3][1],
+             "max_abs_err_d256": topk["d256_err"][route],
+             "ms_d256": d256[0], "host_ms_d256": d256[2],
+             "plain_ms_d256": d256[1], "bound_ms_d256": d256[3][0],
+             "bound_by_d256": d256[3][1]})
     # the card again, then the serving numbers of phases 4d and 4e, as
     # printed there, in one line: the tail of the output holds both
     print(_card_line())
@@ -4201,7 +4709,12 @@ def main() -> int:
          "siameseim_ms": bn["siameseim_step"][0],
          "siameseim_host_ms": bn["siameseim_step"][2],
          "siameseim_plain_ms": bn["siameseim_step"][1],
-         "siameseim_bound_ms": bn["siameseim_bound"][0]},
+         "siameseim_bound_ms": bn["siameseim_bound"][0],
+         "dualview_ms": bn["dualview_step"][0],
+         "dualview_host_ms": bn["dualview_step"][2],
+         "dualview_plain_ms": bn["dualview_step"][1],
+         "dualview_bound_ms": bn["dualview_bound"][0],
+         "dualview_bound_by": bn["dualview_bound"][1]},
         {"name": "conv3x3", "route": "cuda",
          "source": "hairci_torch/ops/csrc/conv3x3.cu",
          "replaces": "tools/fused_conv_bn_bench.py:47",
@@ -4221,15 +4734,23 @@ def main() -> int:
          "ms_128": conv128["ms"], "host_ms_128": conv128["host_ms"],
          "plain_ms_128": conv128["plain_ms"],
          "bound_ms_128": conv128["bound_ms"],
-         "library_ms_128": conv128["library_ms"]}]
+         "library_ms_128": conv128["library_ms"],
+         "ms_f32_32": conv_dv["ms"], "host_ms_f32_32": conv_dv["host_ms"],
+         "plain_ms_f32_32": conv_dv["plain_ms"],
+         "bound_ms_f32_32": conv_dv["bound_ms"],
+         "bound_by_f32_32": conv_dv["bound_by"],
+         "library_ms_f32_32": conv_dv["library_ms"]}]
     # the masked-image runs (phases 7g, 7h) and DINOv2 (7i) launch none of
     # the four, MSN (7j) bn_stats 4 times a step, BYOL (7k) bn_stats 55 and
     # conv3x3 3 times a step, DenseCL (7l) 53 and 3 a step and conv3x3 3
     # times a forward of its kNN, SiameseIM (7m) bn_stats 16 times a step,
-    # SHAM v1 (7n, both modes) none: each run's launches, its training and
-    # its kNN evaluations together
+    # SHAM v1 (7n, both modes) none, DualViewHair (7o) bn_stats 56 / 53 and
+    # conv3x3 3 a step, conv3x3 3 an evaluation forward and the top-k twice
+    # (its retrievals): each run's launches, its training and its
+    # evaluations together
     runs_by_mode = {**masked, **distill, **momentum,
-                    "siameseim": siameseim, "SHAM_v1": sham_v1}
+                    "siameseim": siameseim, "SHAM_v1": sham_v1,
+                    "dualview": dualview}
     for row in rows:
         key = ("topk_gallery_search" if row["name"].startswith("topk")
                else row["name"])

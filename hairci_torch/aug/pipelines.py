@@ -1,7 +1,8 @@
 """Augmentation pipelines (port of part of ``hairci/aug/pipelines.py``):
 the SimCLR views, SupCon's two views, the single view of MAE and SimMIM,
 BYOL's and DenseCL's two views, DINO's and MSN's multi-crop views, the positive transform and the hair
-masking of every SHAM step, and the deterministic kNN and test transforms.
+masking of every SHAM step, the negative transform no recipe calls, and the
+deterministic kNN and test transforms.
 
 Each pipeline has a draw half (a dict of small CPU tensors from one CPU
 ``torch.Generator``) and an apply half that takes those draws, so a test can
@@ -219,6 +220,24 @@ def positive_transform(x: torch.Tensor, d: Draws) -> torch.Tensor:
     return rotate_shear(x, ops.to_device(d["theta"], x.device),
                         max_degrees=15.0,
                         blur_sigma=ops.to_device(d["sigma"], x.device))
+
+
+def draw_negative(gen: torch.Generator, B: int) -> Draws:
+    """The draws of ``negative_transform``: the flip, then a colour jitter
+    of 0.1 / 0.1 / 0.1 / 0.02 applied to every image."""
+    d: Draws = {"flip": ops.draw_flags(gen, B, 0.5)}
+    d.update({f"cj_{k}": v for k, v in ops.draw_color_jitter(
+        gen, B, 0.1, 0.1, 0.1, 0.02, p=1.0).items()})
+    return d
+
+
+def negative_transform(x: torch.Tensor, d: Draws) -> torch.Tensor:
+    """The reference's ``negative_transform`` (``transform.py:26-30``, no
+    recipe calls it): a horizontal flip with p = 0.5 and a very mild colour
+    jitter, on images in [0, 1]."""
+    x = ops.hflip(x, d["flip"])
+    return ops.color_jitter(x, {k[3:]: v for k, v in d.items()
+                                if k.startswith("cj_")})
 
 
 def draw_positive_masking(gen: torch.Generator, B: int, H: int, W: int,

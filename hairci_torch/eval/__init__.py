@@ -1,9 +1,11 @@
-"""Evaluation (port of hairci.eval, apart from ``retrieval_metrics``):
-``features`` (l2_normalize, extract_features), ``knn`` (kNN prediction for
+"""Evaluation (port of hairci.eval): ``features`` (l2_normalize,
+extract_features), ``knn`` (kNN prediction for
 all ks in one pass), ``linear_probe`` (the L-BFGS probe), ``variance``
 (intra/inter-class variance), ``umap_export`` (the 2-D projection),
 ``report`` (sklearn's report layout in numpy) and ``classifier`` (the
-``Classifier`` facade that writes the result files)."""
+``Classifier`` facade that writes the result files); ``retrieval_metrics``
+(Recall@K and mAP@K of DualViewHair's evaluation) is imported by its
+users."""
 
 from hairci_torch.eval.features import extract_features, l2_normalize
 from hairci_torch.eval.knn import (

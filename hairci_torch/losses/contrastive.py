@@ -2,7 +2,9 @@
 (SimCLR and SHAM), the supervised contrastive loss (SupCon), the triplet
 margin loss with eps inside the absolute value
 (``torch.nn.TripletMarginLoss``), and the margin-violation statistics SHAM
-logs and adapts k from."""
+logs and adapts k from; and the reference's losses no recipe calls: NT-Xent
+with one anchor and two positives, the cosine-distance margin losses (one-
+and two-sided) and the MSE of normalised embeddings."""
 
 from __future__ import annotations
 
@@ -24,6 +26,21 @@ def nt_xent_loss(z0: torch.Tensor, z1: torch.Tensor,
                           float("-inf"))
     pos = (torch.arange(n, device=z.device) + n // 2) % n
     return -F.log_softmax(sim, dim=1).gather(1, pos[:, None]).mean()
+
+
+def nt_xent_1anchor_2positive(anchor: torch.Tensor, pos1: torch.Tensor,
+                              pos2: torch.Tensor,
+                              temperature: float = 0.5) -> torch.Tensor:
+    """One anchor, two positives (``losses.py:585-613``): each anchor row
+    against the 3B bank [anchors, pos1, pos2] less itself; the loss is the
+    mean of its two positives' log-probabilities, negated."""
+    a, p1, p2 = l2_normalize(anchor), l2_normalize(pos1), l2_normalize(pos2)
+    B = a.shape[0]
+    sim = (a @ torch.cat([a, p1, p2], 0).T) / temperature
+    own = torch.arange(B, device=a.device)
+    sim = sim.masked_fill(F.one_hot(own, 3 * B).bool(), float("-inf"))
+    logprob = F.log_softmax(sim, dim=1)
+    return -((logprob[own, own + B] + logprob[own, own + 2 * B]) / 2.0).mean()
 
 
 def supcon_loss(features: torch.Tensor,
@@ -82,3 +99,30 @@ def margin_violation_stats(anchor: torch.Tensor, positive: torch.Tensor,
     d_ap = torch.linalg.vector_norm(anchor - positive, dim=-1)
     d_an = torch.linalg.vector_norm(anchor - negative, dim=-1)
     return d_ap.mean(), d_an.mean(), ((d_ap - d_an + margin) > 0).sum()
+
+
+def positive_consistency_loss_margin(anchor: torch.Tensor,
+                                     positive: torch.Tensor,
+                                     margin: float = 0.3) -> torch.Tensor:
+    """mean(max(1 - cos(a, p) - margin, 0)) (``losses.py:544-558``)."""
+    d = 1.0 - torch.sum(l2_normalize(anchor) * l2_normalize(positive), -1)
+    return torch.clamp(d - margin, min=0.0).mean()
+
+
+def bidirectional_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,
+                              negative: torch.Tensor, margin_pos: float = 0.3,
+                              margin_neg: float = 0.7) -> torch.Tensor:
+    """Positives pulled within ``margin_pos``, negatives pushed beyond
+    ``margin_neg`` in cosine distance: the JAX package's explicit form of
+    the reference's broken ``losses.py:561-580``."""
+    a = l2_normalize(anchor)
+    d_pos = 1.0 - torch.sum(a * l2_normalize(positive), -1)
+    d_neg = 1.0 - torch.sum(a * l2_normalize(negative), -1)
+    return (torch.clamp(d_pos - margin_pos, min=0.0)
+            + torch.clamp(margin_neg - d_neg, min=0.0)).mean()
+
+
+def mse_alignment_loss(pred: torch.Tensor,
+                       target: torch.Tensor) -> torch.Tensor:
+    """MSE between L2-normalised embeddings (``utils/utils.py:36-44``)."""
+    return torch.mean(torch.square(l2_normalize(pred) - l2_normalize(target)))

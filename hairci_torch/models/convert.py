@@ -59,6 +59,10 @@ reference ``SiameseIMViT`` ``.pth`` (the online encoder at the top level,
 its momentum copy under ``mm_``, the decoder stack where present) as
 ``convert_siameseim`` + ``merge_params`` do, and ``siameseim_block_norm``
 tells its decoder blocks' norm layout.
+
+``dualview_state_dict_from_jax`` maps one tower of a JAX DualViewHair
+encoder (the ``HairstyleEncoder`` or an enhanced one) and
+``cross_view_alignment_state_dict_from_jax`` a ``CrossViewAlignment``.
 """
 
 from __future__ import annotations
@@ -837,3 +841,53 @@ def siameseim_state_dict(sd: Mapping[str, torch.Tensor], model: nn.Module
     mm = {k[3:]: v for k, v in sd.items() if k.startswith("mm_")}
     mm["pos_embed"] = sd["pos_embed"]
     return branch(sd, True), branch(mm, False)
+
+
+# ---------------------------------------------------------------------------
+# DualViewHair
+# ---------------------------------------------------------------------------
+
+def dualview_state_dict_from_jax(variables: Mapping, encoder: str = "resnet",
+                                 backbone: str = "resnet50"
+                                 ) -> Dict[str, torch.Tensor]:
+    """One tower of a JAX DualViewHair encoder (``{"params": ...,
+    "batch_stats": ...}``: a ``HairstyleEncoder`` for ``encoder="resnet"``,
+    else ``MultiScaleHairEncoder`` / ``PartBasedHairEncoder``) -> the port's
+    encoder's state dict (load with ``strict=True``). The trunk goes
+    through ``resnet_state_dict_from_jax`` under ``backbone.``; the
+    attention conv's HWIO kernel becomes OIHW; ``part_heads_{i}`` become
+    ``part_heads.{i}``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = _backbone_from_jax(params["backbone"], stats["backbone"], backbone,
+                            "backbone.")
+    if encoder == "resnet":
+        for fc, bn in (("emb_fc", "emb_bn"), ("proj_fc1", "proj_bn1"),
+                       ("proj_fc2", "proj_bn2")):
+            _put_dense(sd, fc, params[fc])
+            _put_bn(sd, bn, params[bn], stats[bn])
+    elif encoder == "multiscale":
+        conv = params["attn"]["Conv_0"]
+        _put_conv(sd, "attn.conv", conv)
+        sd["attn.conv.bias"] = _t(conv["bias"])
+        for name in ("emb", "proj1", "proj2"):
+            _put_dense(sd, name, params[name])
+    elif encoder == "partbased":
+        i = 0
+        while f"part_heads_{i}" in params:
+            _put_dense(sd, f"part_heads.{i}", params[f"part_heads_{i}"])
+            i += 1
+        _put_dense(sd, "proj", params["proj"])
+    else:
+        raise ValueError(f"unknown encoder {encoder!r}")
+    return sd
+
+
+def cross_view_alignment_state_dict_from_jax(params: Mapping
+                                             ) -> Dict[str, torch.Tensor]:
+    """JAX ``CrossViewAlignment`` params -> the port's (its
+    ``CrossAttention_0`` as ``attn``; load with ``strict=True``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for dense in ("q", "kv", "proj"):
+        _put_dense(sd, f"attn.{dense}", params["CrossAttention_0"][dense])
+    return sd

@@ -3,8 +3,10 @@ or exact-erf GELU as in lightly's MSN head), the SimCLR projection head
 with its widths by backbone (``_PROJ_DIMS`` of ``hairci/ssl/simclr.py``),
 SupCon's ``mlp`` and ``linear`` heads (``hairci/ssl/supcon.py:SupConModule``),
 the DINO head over weight-normalised prototypes (``DINOHead``), BYOL's
-projection and prediction heads, DenseCL's global and local heads, and the
-token-axis BatchNorm of SiameseIM's decoder blocks (``PermuteBN``)."""
+projection and prediction heads, DenseCL's global and local heads, the
+token-axis BatchNorm of SiameseIM's decoder blocks (``PermuteBN``), and two
+heads no recipe calls: MSN's learnable ``Prototypes`` and the reference's
+pairwise ``RankingHeadMLP``."""
 
 from __future__ import annotations
 
@@ -184,3 +186,37 @@ class PermuteBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.bn(x.reshape(-1, x.shape[-1]).float())
         return y.reshape(x.shape).to(x.dtype)
+
+
+class Prototypes(nn.Module):
+    """A learnable prototype bank (``protos``, N(0, 0.02)) returning the f32
+    cosine logits of ``z`` (B, dim) against it, each side over its norm +
+    1e-12 (``hairci/models/heads.py:Prototypes``, MSN's ``backbone.py:
+    99-104``)."""
+
+    def __init__(self, num_prototypes: int = 1024, dim: int = 256):
+        super().__init__()
+        self.protos = nn.Parameter(torch.randn(num_prototypes, dim) * 0.02)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        w = self.protos.float()
+        w = w / (torch.linalg.vector_norm(w, dim=-1, keepdim=True) + 1e-12)
+        z = z.float()
+        z = z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-12)
+        return z @ w.T
+
+
+class RankingHeadMLP(nn.Module):
+    """Scores an (anchor, candidate) pair of (B, dim) embeddings: fc1 over
+    ``[a, b, |a - b|, a * b]`` to ``hidden``, ReLU, fc2 to one f32 score a
+    row (the reference's ``main_backbone.py:166-196``)."""
+
+    def __init__(self, dim: int, hidden: int = 512,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(4 * dim, hidden, bias=True, dtype=dtype)
+        self.fc2 = Linear(hidden, 1, bias=True, dtype=dtype)
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([a, b, torch.abs(a - b), a * b], dim=-1)
+        return self.fc2(F.relu(self.fc1(x)))[..., 0].float()

@@ -265,3 +265,21 @@ def test_draw_halves_are_seeded():
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     assert not torch.equal(a[0], c[0])
     assert a[0].shape == (B, 24, 24, 3) and torch.isfinite(a[0]).all()
+
+
+def test_negative_transform_on_jax_draws():
+    """``negative_transform`` (flip with p = 0.5, colour jitter 0.1 / 0.1 /
+    0.1 / 0.02 always applied) on JAX's draws; the draw half is seeded."""
+    key, x = jax.random.key(12), _x(12)
+    want = jax.jit(jpipe.negative_transform)(key, jnp.asarray(x))
+    k1, k2 = jax.random.split(key)
+    d = {"flip": _flags(k1, 0.5)}
+    d.update({f"cj_{k}": v for k, v in _cj_draws(
+        k2, B, 0.1, 0.1, 0.1, 0.02, 1.0).items()})
+    got = pipe.negative_transform(_t(x), d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert d["flip"].any() and not d["flip"].all()
+    a = pipe.draw_negative(torch.Generator().manual_seed(2), B)
+    b = pipe.draw_negative(torch.Generator().manual_seed(2), B)
+    assert set(a) == set(d) and all(torch.equal(a[k], b[k]) for k in a)
+    assert a["cj_apply"].all()

@@ -14,11 +14,13 @@ import torch
 
 import hairci.losses.distill as jd
 import hairci.train.schedules as js
+import hairci.models.heads as jheads
 from hairci.models.heads import DINOHead as JaxDINOHead
 from hairci.models.vit import VisionTransformer as JaxViT
 from hairci.ssl.dinov2 import DINOv2Recipe as JaxDINOv2Recipe
 from hairci_torch.losses import distill as pd
 from hairci_torch.models.convert import vit_state_dict_from_jax
+from hairci_torch.models import heads as port_heads
 from hairci_torch.models.heads import DINOHead
 from hairci_torch.models.vit import VisionTransformer
 from hairci_torch.ssl.dinov2 import DINOv2Recipe
@@ -286,3 +288,52 @@ def test_layerscale_vit_matches_jax(dtype):
                    if k.startswith("blocks."))
     assert plain.blocks[0](torch.zeros(1, 17, 64, dtype=torch.bfloat16)
                            ).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ["Prototypes", "RankingHeadMLP"])
+def test_loose_heads_and_gradients_match_jax(name):
+    """``Prototypes`` (cosine logits against 24 prototypes of width 16) and
+    ``RankingHeadMLP`` (16-wide pairs, 32 hidden) from JAX's params: the
+    output and the gradients w.r.t. the inputs and every parameter at rtol
+    1e-5."""
+    rng = _rng(10)
+    a, b = _normal(rng, 5, 16), _normal(rng, 5, 16)
+    if name == "Prototypes":
+        jm, module = jheads.Prototypes(24, 16), port_heads.Prototypes(24, 16)
+        inputs = (a,)
+    else:
+        jm, module = jheads.RankingHeadMLP(hidden=32), \
+            port_heads.RankingHeadMLP(16, hidden=32)
+        inputs = (a, b)
+    params = random_params(lambda: jm.init(jax.random.key(0), *inputs), rng)
+    r = _normal(rng, *np.asarray(jax.eval_shape(
+        lambda: jm.apply({"params": params}, *inputs)).shape))
+
+    def jax_loss(p, *xs):
+        return jnp.sum(jm.apply({"params": p}, *xs) * r)
+
+    value, (gp, *gx) = jax.jit(jax.value_and_grad(
+        jax_loss, argnums=tuple(range(len(inputs) + 1))))(params, *inputs)
+    if name == "Prototypes":
+        module.protos.data.copy_(_t(params["protos"]))
+    else:
+        for fc in ("fc1", "fc2"):
+            getattr(module, fc).weight.data.copy_(
+                _t(np.asarray(params[fc]["kernel"]).T))
+            getattr(module, fc).bias.data.copy_(_t(params[fc]["bias"]))
+    xs = [_t(x, grad=True) for x in inputs]
+    out = module(*xs)
+    assert out.dtype == torch.float32
+    loss = (out * _t(r)).sum()
+    loss.backward()
+    close(loss, value, "value")
+    for x, g in zip(xs, gx):
+        close(x.grad, g, "input grad")
+    if name == "Prototypes":
+        close(module.protos.grad, gp["protos"], "protos grad")
+    else:
+        for fc in ("fc1", "fc2"):
+            close(getattr(module, fc).weight.grad,
+                  np.asarray(gp[fc]["kernel"]).T, f"{fc} kernel grad")
+            close(getattr(module, fc).bias.grad, gp[fc]["bias"],
+                  f"{fc} bias grad")

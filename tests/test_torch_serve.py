@@ -226,20 +226,51 @@ def _imports(path):
             yield node.module
 
 
+def _module_level_imports(path):
+    """Imports outside every function (the ones an import runs)."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                yield node.module
+            yield from walk(ast.iter_child_nodes(node))
+    yield from walk(ast.parse(path.read_text()).body)
+
+
 def test_port_imports_no_jax():
     files = sorted((REPO / "hairci_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"hairci_torch/eval/retrieval_metrics.py",
+            "hairci_torch/train/mining.py", "hairci_torch/utils/metrics.py"
+            } | {f"hairci_torch/experiments/dualview/{m}.py" for m in (
+                "__init__", "data", "enhanced", "losses", "models",
+                "qualitative_test", "quantitative_eval", "train")} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax", "orbax",
                                "hairci"), f"{f}: imports {mod}"
+        # matplotlib only inside the functions that draw (render_grids)
+        assert not any(m.split(".")[0] == "matplotlib"
+                       for m in _module_level_imports(f)), f
+    render = [node for node in ast.walk(ast.parse((
+        REPO / "hairci_torch/experiments/dualview/qualitative_test.py"
+    ).read_text())) if isinstance(node, ast.FunctionDef)
+        and "matplotlib" in {a.name for n in ast.walk(node)
+                             if isinstance(n, ast.Import) for a in n.names}]
+    assert [f.name for f in render] == ["render_grids"]
 
 
 def test_port_pulls_in_no_jax_at_runtime():
     # every module of the port, and chip_smoke.py; nor yaml, which the CLIs
-    # import only for --config
+    # import only for --config, nor matplotlib, which only the functions
+    # that draw import
     code = ("import importlib, pathlib, sys\n"
             "mods = sorted('.'.join(p.with_suffix('').parts) for p in "
             "pathlib.Path('hairci_torch').rglob('*.py'))\n"
@@ -258,11 +289,23 @@ def test_port_pulls_in_no_jax_at_runtime():
             "'hairci_torch.ssl.byol', 'hairci_torch.ssl.densecl', "
             "'hairci_torch.losses.dense', "
             "'hairci_torch.ssl.siameseim', 'hairci_torch.ssl.sham_v1', "
-            "'hairci_torch.train.schedules'} <= set(mods), mods\n"
+            "'hairci_torch.train.schedules', "
+            "'hairci_torch.experiments.dualview', "
+            "'hairci_torch.experiments.dualview.data', "
+            "'hairci_torch.experiments.dualview.enhanced', "
+            "'hairci_torch.experiments.dualview.losses', "
+            "'hairci_torch.experiments.dualview.models', "
+            "'hairci_torch.experiments.dualview.qualitative_test', "
+            "'hairci_torch.experiments.dualview.quantitative_eval', "
+            "'hairci_torch.experiments.dualview.train', "
+            "'hairci_torch.eval.retrieval_metrics', "
+            "'hairci_torch.train.mining', "
+            "'hairci_torch.utils.metrics'} <= set(mods), mods\n"
             "for m in mods + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml', 'hairci'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml', 'hairci', "
+            "'matplotlib'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import hairci.losses.contrastive as jcontrastive
 from hairci.losses.contrastive import margin_violation_stats as j_viol
 from hairci.losses.contrastive import nt_xent_loss as j_ntx
 from hairci.losses.contrastive import triplet_margin_loss as j_trip
@@ -29,6 +30,7 @@ from hairci.ssl.sham import kth_neighbor_indices as j_kth
 from hairci.train.engine import Trainer as JaxTrainer
 from hairci.utils.config import parse_pretrain_args as jax_parse
 from hairci_torch.cli import mainpretrain
+from hairci_torch.losses import contrastive
 from hairci_torch.losses.contrastive import (
     margin_violation_stats,
     nt_xent_loss,
@@ -73,6 +75,30 @@ def test_losses_match_jax():
     mse = torch.mean(torch.square(_t(p) - _t(a)))
     np.testing.assert_allclose(mse.numpy(),
                                np.asarray(jnp.mean(jnp.square(p - a))), **tol)
+
+
+LOOSE_LOSSES = {
+    "nt_xent_1anchor_2positive": ((0, 1, 2), {"temperature": 0.3}),
+    "positive_consistency_loss_margin": ((0, 1), {"margin": 0.9}),
+    "bidirectional_margin_loss": ((0, 1, 2), {"margin_pos": 0.9,
+                                              "margin_neg": 1.1}),
+    "mse_alignment_loss": ((0, 1), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOOSE_LOSSES))
+def test_loose_losses_and_gradients_match_jax(name):
+    """The losses no recipe calls, value and gradients at rtol 1e-5 (the
+    margins put about half the hinges above 0)."""
+    from test_torch_distill import check_grads
+
+    argnums, kw = LOOSE_LOSSES[name]
+    rng = np.random.default_rng(9)
+    arrays = [rng.normal(size=(6, 16)).astype(np.float32)
+              for _ in range(len(argnums))]
+    check_grads(lambda *a: getattr(jcontrastive, name)(*a, **kw),
+                lambda *a: getattr(contrastive, name)(*a, **kw), arrays,
+                argnums=argnums)
 
 
 def test_negative_samplers_match_jax():
