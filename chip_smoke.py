@@ -258,6 +258,28 @@ Phases, in order; any failure raises and exits non-zero:
                 each mode (ViT-B/16, every loss term), and one DualViewHair
                 step (ResNet-50) each of infonce, queue, multiscale + hybrid
                 and partbased (every loss term, the queue's rows, the EMA).
+                BYOL's prediction-head ReLU inputs whose sign the card and
+                the CPU set apart are counted, and its CPU step is taken
+                again from weights moved by 1e-7 and 1e-5 of themselves:
+                how far that moves the gradient that differs most between
+                card and CPU is printed beside the difference.
+ 11. dp     -- data parallelism: SHAM's ResNet-50 step at 224, bf16, B=64
+                (phase 6's configuration) in each stage (warmup, mine,
+                mined) and an f32 warmup step at B=16, without a process
+                group and then through a one-rank NCCL group (the data-
+                parallel code that runs at W ranks: global BN statistics,
+                gathered NT-Xent views, negatives and mining features,
+                global loss means, the coalesced gradient mean; NCCL takes
+                one rank a card). The group's steps must launch exactly the
+                kernels the steps without it launch (55 bn_stats, 1
+                rotate, 3 conv3x3 a step, 6 in mine), issue all-gathers and
+                all-reduces, and the f32 step must equal the step without a
+                group at rtol 1e-5 (every metric, BN statistic and clipped
+                gradient); both sets of steps timed (10 warmup and mined
+                steps each). Then ShardedGalleryIndex over the 103,945 x
+                768 gallery on the one-rank mesh against GalleryIndex at
+                Q = 1 and 256, k=5: one top-k launch a search, the answer
+                the plain twin's under the near-tie rule, both timed.
 The last four lines are the card's name and power limit again, the serving
 numbers of phases 4d and 4e as one JSON object, the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -265,6 +287,12 @@ and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 With ``--kernel-times [DIR]`` it only times the bn_stats, Conv2d, top-k and
 rotate wrappers of the ``hairci_torch`` package under DIR (see
 ``kernel_times``).
+
+With ``--ranks N`` (N cards or more) it runs phases 1-2 and then phase 11
+on N cards, one NCCL rank a card (``_dp_rank``): SHAM and SimCLR on
+ResNet-50 at 224, bf16, at the global B=256 split over the N ranks, and on
+one card where it fits, each timed; the ranks' parameters equal after a
+step; the sharded search over N ranks against GalleryIndex on one card.
 """
 
 from __future__ import annotations
@@ -4258,12 +4286,17 @@ def phase_train_parity_momentum(mode: str) -> None:
     out = {}
     for dev in ("cuda", "cpu"):
         state = rec.create_state(SEED, B, torch.device(dev))
+        relu_in = []
+        if mode == "BYOL":   # the prediction head's first BN output
+            state.online.prediction_head.layers[1].register_forward_hook(
+                lambda mod, i, o: relu_in.append(o.detach().cpu()))
         t0 = time.perf_counter()
         m = rec.step_on_views(state, *(v.to(dev) for v in views),
                               momentum=0.996)
         grads = {n: p.grad.detach().cpu()
                  for n, p in state.online.named_parameters()}
-        out[dev] = ({k: float(v) for k, v in m.items()}, grads)
+        out[dev] = ({k: float(v) for k, v in m.items()}, grads,
+                    relu_in[0] if relu_in else None)
         print(f"train parity {dev}: {mode} step resnet50 {SIZE}px B={B} f32:"
               f" {out[dev][0]} ({time.perf_counter() - t0:.1f} s)")
         del state
@@ -4279,6 +4312,36 @@ def phase_train_parity_momentum(mode: str) -> None:
     print(f"train parity {mode}: largest relative loss-term difference "
           f"{rel:.3g}; largest gradient difference {diff[worst] / top:.3g} "
           f"of the largest gradient entry ({worst})")
+    if mode == "BYOL":
+        # is that difference the step's own sensitivity? The ReLU inputs of
+        # the prediction head whose sign the two devices' f32 rounding set
+        # apart, then the CPU step again from every weight (online and
+        # momentum branch alike) moved by a uniform factor in 1 +- scale
+        flips = int(((out["cuda"][2] > 0) != (out["cpu"][2] > 0)).sum())
+        near = float(out["cpu"][2].abs().min())
+        print(f"train parity {mode}: {flips} ReLU inputs of the prediction "
+              f"head take the other sign on the card (the nearest to 0 on "
+              f"the CPU: {near:.3g})")
+        for scale in (1e-7, 1e-5):
+            state = rec.create_state(SEED, B, torch.device("cpu"))
+            gen = torch.Generator().manual_seed(SEED + 1)
+            with torch.no_grad():
+                for p, e in zip(state.online.parameters(),
+                                state.ema.parameters()):
+                    f = 1 + scale * (2 * torch.rand(p.shape, generator=gen)
+                                     - 1)
+                    p.mul_(f)
+                    e.mul_(f)
+            rec.step_on_views(state, *views, momentum=0.996)
+            moved = {n: (p.grad - out["cpu"][1][n]).abs().max().item()
+                     for n, p in state.online.named_parameters()}
+            most = max(moved, key=moved.get)
+            print(f"train parity {mode}: weights moved by {scale:g} of "
+                  f"themselves move the CPU gradient of {worst} by "
+                  f"{moved[worst] / top:.3g} of the largest gradient entry "
+                  f"(card vs CPU: {diff[worst] / top:.3g}); the most moved, "
+                  f"{most}, by {moved[most] / top:.3g}")
+        del state
     if not rel <= 1e-3:
         raise AssertionError(f"{mode}: card and CPU losses differ by "
                              f"{rel:.3g}")
@@ -4524,6 +4587,383 @@ def kernel_times(root: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data parallelism through the port's process-group code
+# ---------------------------------------------------------------------------
+
+DP_STAGES = ("warmup", "mine", "mined")
+DP_F32_BATCH = 16        # the f32 step held against the step without a group
+DP_GLOBAL_BATCH = 256    # the config's batch, for --ranks N
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_images(workdir: str, B: int):
+    """B uint8 images as the training loader decodes them: the repo's 64
+    hair crops (raw resize to 256), repeated past 64."""
+    import torch
+
+    from hairci_torch.data import DataLoader, load_manifest
+
+    path = os.path.join(workdir, "train.csv")
+    if not os.path.isfile(path):
+        _write_manifest(workdir)
+    loader = DataLoader(load_manifest(path, DATASET), batch_size=64,
+                        size=256, mode="raw_resize", shuffle=False,
+                        num_workers=8)
+    images = torch.from_numpy(next(iter(loader))[0])
+    return images.repeat((B + 63) // 64, 1, 1, 1)[:B]
+
+
+def _sham_recipe(dtype):
+    from hairci_torch.ssl import build_recipe
+
+    return build_recipe("SHAM", backbone="resnet50", img_size=SIZE,
+                        weight_decay=1e-4, num_batches=1, dtype=dtype,
+                        ema_momentum=0.99, warm_up_epochs=2)
+
+
+def _dp_stage_steps(recipe, state, images, tag: str) -> dict:
+    """One SHAM step in each stage, each with the kernels' launch counts and
+    the collectives issued; then 10 timed warmup and mined steps."""
+    import torch
+
+    from hairci_torch.parallel import collectives
+
+    out = {"launches": {}, "calls": {}, "loss": {}, "ms": {}}
+    for stage in DP_STAGES:
+        _reset_counts()
+        collectives.calls.update(all_gather=0, all_reduce=0)
+        m = recipe.train_step(state, images,
+                              torch.Generator().manual_seed(SEED),
+                              stage=stage, batch_id=0, k=7)
+        torch.cuda.synchronize()
+        out["launches"][stage] = _counts()
+        out["calls"][stage] = dict(collectives.calls)
+        out["loss"][stage] = float(m["loss"])
+        if not math.isfinite(out["loss"][stage]):
+            raise AssertionError(f"{tag} {stage}: loss {m['loss']}")
+    for stage in ("warmup", "mined"):
+        out["ms"][stage] = _step_times(recipe, state, images, stage)
+    print(f"dp {tag}: SHAM resnet50 {SIZE}px bf16 B={images.shape[0]} a "
+          f"rank: losses {out['loss']}; launches {out['launches']}; "
+          f"collectives {out['calls']}; median ms/step (host clock, each "
+          f"step synchronised) {out['ms']}")
+    return out
+
+
+def _dp_f32_step(images) -> dict:
+    """One f32 warmup step from seeded weights: its metrics, clipped
+    gradients and BN running stats."""
+    import torch
+
+    rec = _sham_recipe(torch.float32)
+    state = rec.create_state(SEED, images.shape[0], images.device)
+    m = rec.train_step(state, images, torch.Generator().manual_seed(SEED),
+                       stage="warmup")
+    out = {"metrics": {k: float(v) for k, v in m.items()},
+           "grads": {n: p.grad.detach().clone()
+                     for n, p in state.online.named_parameters()},
+           "running": {n: b.clone() for n, b in state.online.named_buffers()
+                       if "running" in n}}
+    del state
+    return out
+
+
+def _near_tie_same(s, i, g, q, k: int) -> float:
+    """The top-k scores within 1e-5 of the plain twin's on the whole
+    gallery, the indices equal where its neighbouring scores part by more
+    than 1e-5; returns the largest score difference."""
+    import torch
+
+    from hairci_torch.eval.knn import full_f32_matmul
+    from hairci_torch.ops.topk import topk_gallery_search_reference
+
+    with full_f32_matmul():
+        rs, ri = topk_gallery_search_reference(q, g, k + 1)
+    s, i = torch.as_tensor(s, device=g.device), torch.as_tensor(
+        i, device=g.device)
+    err = (s - rs[:, :k]).abs().max().item()
+    inf = torch.full_like(rs[:, :1], float("inf"))
+    gaps = rs[:, :-1] - rs[:, 1:]
+    clear = torch.minimum(torch.cat([inf, gaps[:, :-1]], 1), gaps) > 1e-5
+    if not (err <= 1e-5 and bool(((i == ri[:, :k]) | ~clear).all())):
+        raise AssertionError(f"sharded search differs from the whole "
+                             f"gallery's (score error {err})")
+    return err
+
+
+def _dp_gallery():
+    """The seeded 103,945 x 768 unit-norm gallery (host f32) and queries
+    near its rows, Q = 1 and 256 (host f32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    g = rng.standard_normal((GALLERY_ROWS, WIDTH), dtype=np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    rows = rng.integers(0, GALLERY_ROWS, 256)
+    q = g[rows] + 0.3 * rng.standard_normal((256, WIDTH), dtype=np.float32) \
+        / WIDTH ** 0.5
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return g, {1: q[:1], 256: q}
+
+
+def _dp_search(index, queries: dict, g, tag: str, check: bool) -> dict:
+    """Each query batch through ``index.search`` (k = 5): one top-k launch a
+    search, the answer held against the plain twin on the whole gallery,
+    the median search ms."""
+    import torch
+
+    from hairci_torch.ops.topk import topk_gallery_search
+
+    out = {}
+    for Q, q in queries.items():
+        _reset_counts()
+        s, i = index.search(q, k=5, normalized=True)
+        launches = topk_gallery_search.launches
+        routes = dict(topk_gallery_search.routes)
+        if launches != 1:
+            raise AssertionError(f"{tag} Q={Q}: {launches} top-k launches")
+        err = (_near_tie_same(s, i, g, torch.as_tensor(q, device=g.device),
+                              5) if check else None)
+        ms = _median_ms(lambda: index.search(q, k=5, normalized=True),
+                        runs=10, warmup=3)
+        out[Q] = {"ms": ms, "routes": routes, "max_abs_err": err}
+        print(f"dp {tag}: search Q={Q} k=5 over {GALLERY_ROWS} x {WIDTH}: "
+              f"{ms:.3f} ms (CUDA events round the call), routes {routes}, "
+              f"score error {err}")
+    return out
+
+
+def phase_dp(workdir: str) -> dict:
+    """Phase 11: SHAM's step and the gallery search without a process group,
+    then through a one-rank NCCL group (the data-parallel code that runs at
+    W ranks; NCCL takes one rank a card), side by side."""
+    import torch
+    import torch.distributed as dist
+
+    from hairci_torch.parallel import collectives, create_mesh
+    from hairci_torch.retrieval import ShardedGalleryIndex
+    from hairci_torch.retrieval.index import GalleryIndex
+
+    dev = torch.device("cuda")
+    images = _dp_images(workdir, TRAIN_BATCH).to(dev)
+    rec = _sham_recipe(torch.bfloat16)
+    g, queries = _dp_gallery()
+    paths = [str(i) for i in range(GALLERY_ROWS)]
+    g_dev = torch.from_numpy(g).to(dev)
+
+    # without a process group: the one-card path of every earlier phase
+    state = rec.create_state(SEED, TRAIN_BATCH, dev)
+    plain = _dp_stage_steps(rec, state, images, "without a group")
+    del state
+    f32_plain = _dp_f32_step(images[:DP_F32_BATCH])
+    index = GalleryIndex(g, paths, normalized=True, device=dev)
+    plain_search = _dp_search(index, queries, g_dev, "GalleryIndex", True)
+    del index
+
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = create_mesh()
+        state = rec.create_state(SEED, TRAIN_BATCH, dev)
+        dp = _dp_stage_steps(rec, state, images, "one-rank group")
+        del state
+        f32_dp = _dp_f32_step(images[:DP_F32_BATCH])
+        index = ShardedGalleryIndex(mesh, g, paths, normalized=True,
+                                    device=dev)
+        dp_search = _dp_search(index, queries, g_dev, "ShardedGalleryIndex",
+                               True)
+        del index
+    finally:
+        collectives.shutdown()
+
+    for stage in DP_STAGES:
+        # 55 train-mode BNs over the 3B rows, one rotation, and 3 conv3x3 a
+        # forward without gradient (the EMA's; two in the mine stage)
+        want = {"topk_gallery_search": 0, "rotate_shear": 1, "bn_stats": 55,
+                "conv3x3": 6 if stage == "mine" else 3}
+        if plain["launches"][stage] != want:
+            raise AssertionError(f"{stage}: launches "
+                                 f"{plain['launches'][stage]} != {want}")
+        if dp["launches"][stage] != plain["launches"][stage]:
+            raise AssertionError(
+                f"dp {stage}: launches {dp['launches'][stage]} != "
+                f"{plain['launches'][stage]} without a group")
+        if not all(dp["calls"][stage].values()):
+            raise AssertionError(f"dp {stage}: collectives "
+                                 f"{dp['calls'][stage]}")
+    # the one-rank step is the step: every metric, BN statistic and clipped
+    # gradient of the f32 step at rtol 1e-5
+    worst = {}
+    for what in ("metrics", "grads", "running"):
+        a, b = f32_dp[what], f32_plain[what]
+        errs = []
+        for name, want in b.items():
+            got = torch.as_tensor(a[name], dtype=torch.float64)
+            want = torch.as_tensor(want, dtype=torch.float64)
+            scale = want.abs().max().item()
+            tol = 1e-5 * want.abs() + 1e-5 * scale + 1e-12
+            errs.append(((got - want).abs() / tol).max().item())
+        worst[what] = max(errs)
+        if worst[what] > 1:
+            raise AssertionError(f"dp f32 step: {what} off by {worst[what]} "
+                                 "of rtol 1e-5")
+    print(f"dp f32 step (B={DP_F32_BATCH}, warmup): the one-rank group's "
+          f"against the step without a group, largest |difference| over "
+          f"(1e-5 |x| + 1e-5 max|x|): {worst}; loss "
+          f"{f32_dp['metrics']['loss']:.7f} vs "
+          f"{f32_plain['metrics']['loss']:.7f}")
+    launches = {name: sum(dp["launches"][s][name] for s in DP_STAGES)
+                for name in dp["launches"]["warmup"]}
+    launches["topk_gallery_search"] = len(dp_search)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "search": {"plain": plain_search,
+                                            "dp": dp_search}}
+
+
+# ---------------------------------------------------------------------------
+# --ranks N: phase 11 on N cards, one NCCL rank a card
+# ---------------------------------------------------------------------------
+
+def _dp_rank(rank: int, n: int, port: int, workdir: str) -> None:
+    """One rank of ``--ranks N``: SHAM and SimCLR (ResNet-50, 224, bf16) at
+    the global B=256 on N cards (B/N a rank) and on one card (rank 0 alone,
+    through a one-rank group, where 4 x the peak of a rank's step stays
+    below 75 GiB), each timed; the kernels' launches and the collectives of
+    the N-card step; equal parameters on every rank; the sharded search on
+    N cards against GalleryIndex on one."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    from hairci_torch.parallel import collectives, create_mesh
+    from hairci_torch.retrieval import ShardedGalleryIndex
+    from hairci_torch.retrieval.index import GalleryIndex
+    from hairci_torch.ssl import build_recipe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if n > 1:
+        dev = collectives.init_distributed(f"localhost:{port}", n, rank,
+                                           torch.device("cuda"))
+    else:   # init_distributed leaves one process alone, as JAX's does
+        dev = torch.device("cuda", 0)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=0, world_size=1)
+    B = DP_GLOBAL_BATCH
+    b = B // n
+    images = _dp_images(workdir, B)
+    mine = images[rank * b:(rank + 1) * b].to(dev)
+    one = dist.new_group([0])
+    res = {"ranks": n, "global_batch": B, "card": _card_line()}
+    for mode in ("SHAM", "simclr"):
+        kw = {"num_batches": 1} if mode == "SHAM" else {}
+        rec = build_recipe(mode, backbone="resnet50", img_size=SIZE,
+                           weight_decay=1e-4, dtype=torch.bfloat16, **kw)
+
+        def step(state, x, i):
+            gen = torch.Generator().manual_seed(1000 + i)
+            if mode == "SHAM":
+                return rec.train_step(state, x, gen, stage="warmup")
+            return rec.train_step(state, x, gen)
+
+        def timed(state, x):
+            times = []
+            for i in range(13):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, x, i)
+                torch.cuda.synchronize()
+                if i >= 3:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            return sorted(times)[len(times) // 2]
+
+        torch.cuda.reset_peak_memory_stats()
+        state = rec.create_state(SEED, B, dev)
+        _reset_counts()
+        collectives.calls.update(all_gather=0, all_reduce=0)
+        step(state, mine, 0)
+        torch.cuda.synchronize()
+        row = {"launches": _counts(), "calls": dict(collectives.calls),
+               "ms_n_cards": timed(state, mine)}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        sums = torch.stack([p.detach().double().sum()
+                            for p in state.online.parameters()])
+        every = collectives.all_gather(sums[None])
+        row["params_equal"] = bool((every == every[0]).all())
+        row["peak_gib_a_rank"] = peak
+        del state
+        torch.cuda.empty_cache()
+        if rank == 0 and peak * n < 75:
+            collectives.set_group(one)
+            state = rec.create_state(SEED, B, dev)
+            row["ms_one_card"] = timed(state, images.to(dev))
+            collectives.set_group(None)
+            del state
+            torch.cuda.empty_cache()
+        elif rank == 0:
+            row["ms_one_card"] = None
+        res[mode] = row
+        dist.barrier()
+    g, queries = _dp_gallery()
+    paths = [str(i) for i in range(GALLERY_ROWS)]
+    index = ShardedGalleryIndex(create_mesh(), g, paths, normalized=True,
+                                device=dev)
+    res["search_n_cards"] = _dp_search(index, queries,
+                                       torch.from_numpy(g).to(dev),
+                                       f"{n} ranks, rank {rank}", rank == 0)
+    del index
+    if rank == 0:
+        index = GalleryIndex(g, paths, normalized=True, device=dev)
+        res["search_one_card"] = _dp_search(index, queries,
+                                            torch.from_numpy(g).to(dev),
+                                            "GalleryIndex", True)
+        with open(os.path.join(workdir, "dp_ranks.json"), "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    collectives.shutdown()
+
+
+def dp_ranks(n: int) -> int:
+    """``python3 chip_smoke.py --ranks N``: phases 1-2, then phase 11 on N
+    cards (``_dp_rank``), one process a card."""
+    import torch
+
+    device = phase_device()
+    if device["count"] < n:
+        raise SystemExit(f"chip_smoke --ranks {n}: {device['count']} cards")
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as workdir:
+        torch.multiprocessing.spawn(_dp_rank,
+                                    args=(n, _free_port(), workdir),
+                                    nprocs=n)
+        with open(os.path.join(workdir, "dp_ranks.json")) as f:
+            res = json.load(f)
+    for mode in ("SHAM", "simclr"):
+        r = res[mode]
+        if not (r["params_equal"] and all(r["calls"].values())):
+            raise AssertionError(f"--ranks {n} {mode}: {r}")
+        print(f"dp {mode} resnet50 {SIZE}px bf16 B={res['global_batch']}: "
+              f"{n} cards {r['ms_n_cards']:.2f} ms/step, one card "
+              f"{r['ms_one_card']} ms/step (host clock, median of 10 after "
+              f"3); launches a rank {r['launches']}; collectives {r['calls']}")
+    print(_card_line())
+    print(json.dumps({"dp_ranks": res}))
+    device["count"] = n
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "hairci_torch")):
         raise SystemExit("chip_smoke: hairci_torch/ not found beside "
@@ -4531,6 +4971,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--kernel-times"]:
         return kernel_times(sys.argv[2] if len(sys.argv) > 2 else REPO)
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--ranks"]:
+        return dp_ranks(int(sys.argv[2]))
     device = phase_device()
     phase_build()
     kern = phase_kernels()
@@ -4582,6 +5024,9 @@ def main() -> int:
         phase_train_parity_sham_v1(mode)
     for encoder, loss in DV_PARITY:
         phase_train_parity_dualview(encoder, loss)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
+                                     dir=REPO) as workdir:
+        dp = phase_dp(workdir)
     rot, bn, topk = kern["rotate"], kern["bn_stats"], kern["topk"]
     conv = kern["conv3x3"]["times"][(CLI_BATCH, "bf16")]
     conv224 = kern["conv3x3"]["times224"][CLI_BATCH]
@@ -4757,6 +5202,14 @@ def main() -> int:
         for mode, run in runs_by_mode.items():
             row[f"launches_{mode.lower()}"] = (run["launches"][key]
                                                + run["knn_launches"][key])
+        # phase 11: the SHAM steps (warmup, mine, mined) and the sharded
+        # searches (Q = 1: fma, Q = 256: mma) through a one-rank group
+        if key == "topk_gallery_search":
+            route = "mma" if row["name"].endswith("batched") else "fma"
+            row["launches_dp"] = sum(r["routes"][route]
+                                     for r in dp["search"]["dp"].values())
+        else:
+            row["launches_dp"] = dp["launches"][key]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -22,9 +22,12 @@ SimCLR and SupCon, the masked-image recipes MAE and SimMIM, and evaluation.
   native/     the C++ batch image decoder and the host flat index (g++ at
               first use)
   ops/        hand-written CUDA kernels (csrc/) with plain twins
+  parallel/   the (data, model) mesh over a torch.distributed process group
+              and the collectives of data-parallel training
   preprocess/ hair-region extraction (facer, or the Otsu threshold) and the
               folder splitter
-  retrieval/  GalleryIndex, HairEncoder, FaceEncoder, FAISS flat-index files
+  retrieval/  GalleryIndex, the row-sharded gallery search, HairEncoder,
+              FaceEncoder, FAISS flat-index files
   ssl/        recipe registry, SHAM, SimCLR, SupCon, MAE, SimMIM
   train/      TrainState, optimizer, Trainer, checkpoints
   cli/        retrieval, face_retrieval, mainpretrain, knn_classification

@@ -23,6 +23,16 @@ from hairci_torch.ops.rotate import rotate_shear
 Draws = Dict[str, torch.Tensor]
 
 
+def shard_draws(d: Draws, lo: int, hi: int) -> Draws:
+    """Images ``[lo, hi)`` of one draw dict (a view's, the positive's or the
+    masking's): every per-image draw cut to those rows -- ``crop`` is
+    (4, B), the rest lead with B -- and the colour jitter's one op order for
+    the batch kept whole. A data-parallel rank draws for the global batch
+    and keeps its rows, so its views are the one-process run's."""
+    return {k: v[:, lo:hi] if k == "crop" else v if k == "cj_order"
+            else v[lo:hi] for k, v in d.items()}
+
+
 def _blur_kernel_size(input_size: int) -> int:
     # lightly uses kernel ~ 0.1 * input size, odd
     k = int(0.1 * input_size)

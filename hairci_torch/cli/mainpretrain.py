@@ -20,6 +20,24 @@ batch size by repeating its last row, as the JAX CLI does. ``--device``
 defaults to cuda and raises without a card; ``--device cpu`` runs the
 kernels' plain twins. Every mode of the JAX CLI is ported; an ``args``
 with another mode exits with "not yet ported".
+
+Several processes, one a card (``--device cpu``: gloo on the CPU)::
+
+    python -m hairci_torch.cli.mainpretrain --mode SHAM --model resnet50 \
+        --num_processes 4 --process_index $i --coordinator host0:29500 ...
+
+rendezvous at ``--coordinator`` (NCCL on cards; rank i takes card
+``i % device_count`` of its host) and train data-parallel on a ``(data,
+model)`` mesh of ``--num_processes / --n_model_shards`` by
+``--n_model_shards`` ranks. ``--batch_size`` is the global batch: each rank
+decodes and trains on its rows of the batch the one-process run sees, and
+the step is that run's (``ssl.sham``, ``ssl.simclr``). The batch is split
+over ``data`` only, as in JAX. A batch the ``data`` axis does not divide is
+refused: JAX shrinks the axis to ``gcd(batch, devices)`` instead, but a
+process that owns a card cannot sit idle without changing the result. Only
+SHAM and simclr on a ResNet without ``--S2R2`` have a global-batch step
+yet; every other mode or option exits under ``--num_processes`` > 1, naming
+the gap, rather than train W independent runs.
 """
 
 from __future__ import annotations
@@ -30,16 +48,52 @@ import torch
 
 from hairci_torch.data import DataLoader, load_manifest
 from hairci_torch.eval.knn import full_f32
+from hairci_torch.parallel import DATA_AXIS, collectives, create_mesh
 from hairci_torch.ssl import build_recipe
 from hairci_torch.train.engine import Trainer
 from hairci_torch.utils.config import parse_pretrain_args
 from hairci_torch.utils.device import resolve_device
 from hairci_torch.utils.seeding import set_seed
 
-__all__ = ["PORTED_MODES", "build_recipe_from_args", "main", "set_seed"]
+__all__ = ["DATA_PARALLEL_MODES", "PORTED_MODES", "build_recipe_from_args",
+           "check_data_parallel", "main", "set_seed"]
 
 PORTED_MODES = ("SHAM", "simclr", "S2R2", "simclr_supcon", "mae", "simMIM",
                 "dinov2", "MSN", "BYOL", "DenseCL", "siameseim")
+# the modes whose step is the global batch's under several processes
+DATA_PARALLEL_MODES = ("SHAM", "simclr")
+_DP_GAP = ("(ROADMAP.md, queue 1: the data-parallel loss terms of the other "
+           "recipes)")
+
+
+def check_data_parallel(args) -> None:
+    """Exit, naming the gap, when several processes were asked for a run
+    whose step is not yet the global batch's, or for a batch the ``data``
+    axis does not divide; run before the rendezvous."""
+    n = args.num_processes or 1
+    if n <= 1:
+        return
+    where = f"--num_processes {n}"
+    if args.mode not in DATA_PARALLEL_MODES:
+        raise SystemExit(
+            f"{where}: --mode {args.mode} has no data-parallel step yet; "
+            f"only {' and '.join(DATA_PARALLEL_MODES)} on a ResNet train on "
+            f"several processes {_DP_GAP}")
+    if args.S2R2 or args.model.startswith("vit"):
+        what = "--S2R2" if args.S2R2 else f"--model {args.model}"
+        raise SystemExit(
+            f"{where}: {what} has no data-parallel step yet; only "
+            f"{' and '.join(DATA_PARALLEL_MODES)} on a ResNet without "
+            f"--S2R2 train on several processes {_DP_GAP}")
+    if n % args.n_model_shards:
+        raise SystemExit(f"{where} does not divide by --n_model_shards "
+                         f"{args.n_model_shards}")
+    w = n // args.n_model_shards
+    if args.batch_size % w:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} does not split over the W={w} "
+            f"data-parallel ranks ({where}, --n_model_shards "
+            f"{args.n_model_shards}): give a multiple of {w}")
 
 
 def build_recipe_from_args(args, num_batches: int):
@@ -81,22 +135,32 @@ def main(argv=None) -> Trainer:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     args = parse_pretrain_args(argv)
+    check_data_parallel(args)
     device = resolve_device(args.device)
-    set_seed(args.seed)
     if not args.train_annotation or not args.img_dir:
         raise SystemExit("--train_annotation and --img_dir are required")
-    manifest = load_manifest(args.train_annotation, args.img_dir)
-    drop_last = args.mode == "SHAM"
-    raw_size = max(args.size, int(args.size * 256 / 224))  # room for the crop
-    loader = DataLoader(
-        manifest, batch_size=args.batch_size, size=raw_size,
-        mode="raw_resize", shuffle=True, drop_last=drop_last,
-        pad_last=not drop_last, seed=args.seed,
-        num_workers=args.num_workers)
-    recipe = build_recipe_from_args(args, num_batches=len(loader))
-    with full_f32(args.dtype):
-        trainer = Trainer(recipe, loader, args, device)
-        trainer.train()
+    device = collectives.init_distributed(
+        args.coordinator, args.num_processes, args.process_index, device)
+    try:
+        set_seed(args.seed)
+        mesh = create_mesh(n_model=args.n_model_shards)
+        manifest = load_manifest(args.train_annotation, args.img_dir)
+        drop_last = args.mode == "SHAM"
+        raw_size = max(args.size, int(args.size * 256 / 224))  # crop room
+        loader = DataLoader(
+            manifest, batch_size=args.batch_size, size=raw_size,
+            mode="raw_resize", shuffle=True, drop_last=drop_last,
+            pad_last=not drop_last, seed=args.seed,
+            num_workers=args.num_workers,
+            shard_index=mesh.coordinate(DATA_AXIS),
+            shard_count=mesh.shape[DATA_AXIS])
+        recipe = build_recipe_from_args(args, num_batches=len(loader))
+        with full_f32(args.dtype):
+            trainer = Trainer(recipe, loader, args, device, mesh=mesh)
+            trainer.train()
+    finally:
+        if (args.num_processes or 1) > 1:
+            collectives.shutdown()
     return trainer
 
 

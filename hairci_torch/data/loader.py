@@ -39,6 +39,7 @@ from PIL import Image
 
 from hairci_torch.data.manifest import Manifest
 from hairci_torch.native import imageio
+from hairci_torch.parallel.collectives import shard_for_host
 
 log = logging.getLogger(__name__)
 
@@ -88,6 +89,13 @@ class DataLoader:
     Yields (images (B, size, size, 3) uint8, labels (B,) int32). The
     incomplete final batch is dropped when ``drop_last``, and padded to the
     full batch size by repeating its last row when ``pad_last``.
+
+    With ``shard_count`` > 1 (data parallelism) the batches stay those of
+    the one-process run, in the same order, and this loader decodes and
+    yields only its shard of each (``shard_for_host``'s rule: rows
+    ``[i B/n, (i+1) B/n)`` for ``shard_index`` i of n): ``batch_size`` is the
+    global batch, which n must divide, and the last batch must be dropped
+    or padded so that every shard has its B/n rows.
     """
 
     def __init__(
@@ -103,9 +111,16 @@ class DataLoader:
         prefetch: int = 4,
         pad_last: bool = False,
         decoder: str = "auto",
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         if decoder not in ("auto", "native", "pil"):
             raise ValueError(f"unknown decoder {decoder!r}")
+        if shard_count > 1 and (batch_size % shard_count
+                                or not (drop_last or pad_last)):
+            raise ValueError(
+                f"a batch of {batch_size} split over {shard_count} shards "
+                "must divide evenly, with the last batch dropped or padded")
         if decoder == "native":
             if mode not in _NATIVE_MODES:
                 raise ValueError(
@@ -124,6 +139,8 @@ class DataLoader:
         self.prefetch = prefetch
         self.pad_last = pad_last
         self.decoder = decoder
+        self.shard_index = shard_index
+        self.shard_count = shard_count
         self._epoch = 0
 
     def _native_decode(self, paths):
@@ -152,6 +169,15 @@ class DataLoader:
             rng.shuffle(idx)
         return idx
 
+    def _shard(self, indices: np.ndarray) -> np.ndarray:
+        """This shard's rows of one batch of the one-process run, padded
+        as that run pads it."""
+        if self.pad_last and len(indices) < self.batch_size:
+            indices = np.concatenate([indices, indices[-1:].repeat(
+                self.batch_size - len(indices))])
+        return indices[shard_for_host(len(indices), self.shard_index,
+                                      self.shard_count)]
+
     def _load_batch(self, indices: np.ndarray, pool: ThreadPoolExecutor):
         paths = [self.manifest.paths[i] for i in indices]
         native = self._native_decode(paths)
@@ -169,7 +195,8 @@ class DataLoader:
             return None
         images = np.stack([arrs[i] for i in good])
         labels = self.manifest.label_indices[indices[good]]
-        target = self.batch_size if self.pad_last else len(indices)
+        target = (self.batch_size if self.pad_last and self.shard_count == 1
+                  else len(indices))
         if images.shape[0] < target:
             # pad to a static shape by repeating rows (decode failures, or
             # the final partial batch when pad_last)
@@ -184,6 +211,8 @@ class DataLoader:
         n_batches = len(self)
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(n_batches)]
+        if self.shard_count > 1:
+            batches = [self._shard(b) for b in batches]
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         _SENTINEL = object()
 

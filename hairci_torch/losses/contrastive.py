@@ -4,7 +4,13 @@ margin loss with eps inside the absolute value
 (``torch.nn.TripletMarginLoss``), and the margin-violation statistics SHAM
 logs and adapts k from; and the reference's losses no recipe calls: NT-Xent
 with one anchor and two positives, the cosine-distance margin losses (one-
-and two-sided) and the MSE of normalised embeddings."""
+and two-sided) and the MSE of normalised embeddings.
+
+Under data parallelism (``parallel.collectives``) NT-Xent, the triplet loss
+and the margin statistics are the global batch's, as under JAX's sharding:
+NT-Xent gathers both views from every rank, so its negatives span the
+global 2B views, and the triplet loss and the statistics are means (the
+violations a sum) over the global batch."""
 
 from __future__ import annotations
 
@@ -14,11 +20,20 @@ import torch
 import torch.nn.functional as F
 
 from hairci_torch.eval.features import l2_normalize
+from hairci_torch.parallel import collectives
 
 
 def nt_xent_loss(z0: torch.Tensor, z1: torch.Tensor,
                  temperature: float = 0.5) -> torch.Tensor:
-    """Symmetric NT-Xent over 2B views (lightly NTXentLoss semantics)."""
+    """Symmetric NT-Xent over 2B views (lightly NTXentLoss semantics); the
+    views of every rank under data parallelism."""
+    # both views of every rank, (W * 2, b, D) in rank order; without a
+    # process group the same steps (and no collective), so that autograd
+    # sums the gradients in the same order with a one-rank group
+    zz = collectives.all_gather(torch.stack([z0, z1]))
+    zz = zz.reshape(-1, 2, *z0.shape)
+    z0, z1 = (zz[:, 0].reshape(-1, z0.shape[1]),
+              zz[:, 1].reshape(-1, z1.shape[1]))
     z = torch.cat([l2_normalize(z0), l2_normalize(z1)], 0)  # (2B, D)
     n = z.shape[0]
     sim = (z @ z.T) / temperature
@@ -82,12 +97,13 @@ def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,
                         negative: torch.Tensor, margin: float = 1.0,
                         p: float = 2.0, eps: float = 1e-6) -> torch.Tensor:
     """mean(max(d(a, p) - d(a, n) + margin, 0)), d the p-norm of
-    ``|x - y + eps|``."""
+    ``|x - y + eps|``; the mean over every rank's rows."""
     d_ap = torch.pow(torch.sum(torch.abs(anchor - positive + eps) ** p, -1),
                      1.0 / p)
     d_an = torch.pow(torch.sum(torch.abs(anchor - negative + eps) ** p, -1),
                      1.0 / p)
-    return torch.clamp(d_ap - d_an + margin, min=0.0).mean()
+    return collectives.global_mean(torch.clamp(d_ap - d_an + margin,
+                                               min=0.0))
 
 
 def margin_violation_stats(anchor: torch.Tensor, positive: torch.Tensor,
@@ -95,10 +111,11 @@ def margin_violation_stats(anchor: torch.Tensor, positive: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """(mean L2 d(a, p), mean L2 d(a, n), count of d(a,p) - d(a,n) + margin
-    > 0)."""
+    > 0), over every rank's rows."""
     d_ap = torch.linalg.vector_norm(anchor - positive, dim=-1)
     d_an = torch.linalg.vector_norm(anchor - negative, dim=-1)
-    return d_ap.mean(), d_an.mean(), ((d_ap - d_an + margin) > 0).sum()
+    return (collectives.global_mean(d_ap), collectives.global_mean(d_an),
+            collectives.all_reduce_sum(((d_ap - d_an + margin) > 0).sum()))
 
 
 def positive_consistency_loss_margin(anchor: torch.Tensor,

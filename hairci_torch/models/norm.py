@@ -8,6 +8,13 @@ CUDA kernel on a card, its twin on the CPU) and forms mean = E[x] and the
 ``m * old + (1 - m) * new`` with m = 0.9 and the biased var -- the stock
 ``nn.BatchNorm2d`` keeps the unbiased var with momentum 0.1. There is no
 ``num_batches_tracked`` buffer: the JAX state has none to convert.
+
+Under data parallelism (a process group, ``parallel.collectives``) the
+statistics are the global batch's, as under JAX's sharding: each rank's
+kernel sums its own rows, and one differentiable all-reduce adds the sums,
+the sums of squares and the row counts of every rank before the mean and
+var are formed, so the running stats agree on every rank.
+``nn.SyncBatchNorm`` would keep the unbiased var at momentum 0.1.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 from torch import nn
 
 from hairci_torch.ops.bn_stats import BNStats
+from hairci_torch.parallel import collectives
 
 
 class BatchNorm(nn.Module):
@@ -50,7 +58,13 @@ class BatchNorm(nn.Module):
         x2 = nhwc.reshape(-1, c)
         if self.training:
             s, sq = BNStats.apply(x2.contiguous())
-            n = x2.shape[0]
+            # the row count as a device tensor with or without a process
+            # group, so that both divide alike (a division by a host scalar
+            # may round otherwise on a card)
+            n = s.new_full((1,), x2.shape[0])
+            if collectives.active():
+                tot = collectives.all_reduce_sum(torch.cat([s, sq, n]))
+                s, sq, n = tot[:c], tot[c:2 * c], tot[2 * c:].detach()
             mean = s / n
             var = sq / n - mean * mean
             if self.centered:

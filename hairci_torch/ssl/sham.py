@@ -24,6 +24,21 @@ three gradient-carrying passes keep every block's attention matrices).
 The port updates the state in place. ``train_step`` draws every random
 parameter of the step from one CPU generator (``draw``) and hands them to
 ``step_on_views``, so a test can feed JAX's views and draws instead.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding. ``images`` are this rank's
+rows ``[r B/W, (r+1) B/W)`` of the global batch of B. Every rank draws the
+step's random parameters for all B from the same generator and keeps its
+rows (``shard_draws``); the derangement is of the global permutation; the
+``mine`` stage ranks the all-gathered EMA features of the global batch, so
+``neg_indices`` holds global indices, the same on every rank; each rank
+takes its negatives from the all-gathered ``pos1`` views, runs the fused
+online forward on its own 3B/W rows (the BN statistics still cover all 3B,
+``models.norm``) and the rotate kernel and the EMA forwards on its own
+rows. The losses and statistics are the global batch's
+(``losses.contrastive``), the gradients are averaged over the ranks before
+the clip (``train.optim.all_reduce_grads_``), and the parameters stay equal
+bit for bit. The ViT and ``s2r2_weight`` are not made global yet.
 """
 
 from __future__ import annotations
@@ -42,6 +57,7 @@ from hairci_torch.aug.pipelines import (
     knn_transform,
     positive_masking_transform,
     positive_transform,
+    shard_draws,
     simclr_transform,
 )
 from hairci_torch.eval.features import l2_normalize
@@ -54,12 +70,14 @@ from hairci_torch.losses.ranking import s2r2_loss
 from hairci_torch.models.heads import MLPHead
 from hairci_torch.models.resnet import build_resnet
 from hairci_torch.models.vit import build_vit
+from hairci_torch.parallel import collectives
 from hairci_torch.ssl.base import (
     backbone_features,
     eval_features,
     register_recipe,
 )
 from hairci_torch.train.optim import (
+    all_reduce_grads_,
     clip_grad_global_norm_,
     fill_missing_grads_,
     make_optimizer,
@@ -200,10 +218,17 @@ class SHAMRecipe:
     def train_step(self, state: TrainState, images: torch.Tensor,
                    gen: torch.Generator, stage: str = "warmup",
                    batch_id: int = 0, k: int = 7) -> Dict[str, torch.Tensor]:
-        """One step on a uint8 (B, H, W, 3) batch on the training device.
-        Returns the step's metrics as device tensors (no host sync)."""
-        B, H, W, _ = images.shape
-        draws = self.draw(gen, B, H, W)
+        """One step on a uint8 (B, H, W, 3) batch on the training device
+        (this rank's rows under data parallelism). Returns the step's
+        metrics as device tensors (no host sync)."""
+        b, H, W, _ = images.shape
+        draws = self.draw(gen, b * collectives.world(), H, W)
+        lo = collectives.rank() * b
+        draws = {"views": [shard_draws(v, lo, lo + b)
+                           for v in draws["views"]],
+                 "perm": draws["perm"],   # the global permutation
+                 "positive": shard_draws(draws["positive"], lo, lo + b),
+                 "mask": shard_draws(draws["mask"], lo, lo + b)}
         x_anchor, x_pos1 = self.transform.apply(images, draws["views"])
         return self.step_on_views(state, x_anchor, x_pos1, draws, stage,
                                   batch_id, k)
@@ -212,6 +237,12 @@ class SHAMRecipe:
                       x_pos1: torch.Tensor, draws: Dict[str, Any],
                       stage: str = "warmup", batch_id: int = 0,
                       k: int = 7) -> Dict[str, torch.Tensor]:
+        """One step on this rank's views; ``draws["perm"]`` is the global
+        batch's, ``positive`` and ``mask`` this rank's rows."""
+        if collectives.active() and (self.s2r2_weight > 0
+                                     or self.backbone.startswith("vit")):
+            raise NotImplementedError(
+                "SHAM's data-parallel step covers ResNets without S2R2")
         online, ema = state.online, state.ema
         ema_update(ema, online, self.ema_momentum)  # before the forward
 
@@ -221,7 +252,7 @@ class SHAMRecipe:
         elif stage == "mine":
             with torch.no_grad():
                 feats = ema.extract_features(x_pos1)
-            neg_idx = kth_neighbor_indices(feats, k)
+            neg_idx = kth_neighbor_indices(collectives.all_gather(feats), k)
             state.neg_indices[batch_id] = neg_idx
             margin = self.margin_stage2
         elif stage == "mined":
@@ -230,7 +261,11 @@ class SHAMRecipe:
         else:
             raise ValueError(f"unknown stage {stage!r}")
 
-        negative = x_pos1[neg_idx]
+        # this rank's rows of the global negatives, taken from every rank's
+        # pos1 views
+        b = x_pos1.shape[0]
+        lo = collectives.rank() * b
+        negative = collectives.all_gather(x_pos1)[neg_idx[lo:lo + b]]
         pos = (x_pos1 if self.ablation == "No_pos_transform"
                else positive_transform(x_pos1, draws["positive"]))
         masked_pos = (pos if self.ablation == "No masked positive"
@@ -245,7 +280,7 @@ class SHAMRecipe:
 
         contrastive = nt_xent_loss(pos_b, anchor_b, self.temperature)
         triplet = triplet_margin_loss(anchor_b, pos_b, neg_b, margin)
-        mse = torch.mean(torch.square(pos_b - masked_b))
+        mse = collectives.global_mean(torch.square(pos_b - masked_b))
         if self.ablation == "No_Triplet":
             total = contrastive + self.mse_w * mse
         elif self.ablation == "No_MSE":
@@ -256,6 +291,7 @@ class SHAMRecipe:
             total = total + self.s2r2_weight * s2r2_loss(
                 torch.cat([anchor_b, pos_b, neg_b]), tau=0.01, k_views=3)
         total.backward()
+        all_reduce_grads_(state.optimizer)
         # parameters without a gradient (the ViT's fixed position table and
         # unused mask token) still decay, as under optax
         fill_missing_grads_(state.optimizer)

@@ -17,6 +17,14 @@ the kNN view in eval mode.
 The port updates the state in place. ``train_step`` draws the views' random
 parameters from one CPU generator (``draw``) and hands the views to
 ``step_on_views``, so a test can feed JAX's views instead.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding: ``images`` are this rank's
+rows of the global batch, the views' draws are taken for the global batch
+and cut to those rows, the BN statistics cover both views of every rank
+(``models.norm``), NT-Xent's negatives span the global 2B views, and the
+gradients are averaged over the ranks (``train.optim.all_reduce_grads_``).
+The ViT and ``s2r2_weight`` are not made global yet.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from torch import nn
 from hairci_torch.aug.pipelines import (
     MultiViewTransform,
     knn_transform,
+    shard_draws,
     simclr_transform,
 )
 from hairci_torch.losses.contrastive import nt_xent_loss
@@ -36,12 +45,17 @@ from hairci_torch.losses.ranking import s2r2_loss
 from hairci_torch.models.heads import SIMCLR_PROJ_DIMS, simclr_projection_head
 from hairci_torch.models.resnet import build_resnet
 from hairci_torch.models.vit import build_vit
+from hairci_torch.parallel import collectives
 from hairci_torch.ssl.base import (
     backbone_features,
     eval_features,
     register_recipe,
 )
-from hairci_torch.train.optim import fill_missing_grads_, make_optimizer
+from hairci_torch.train.optim import (
+    all_reduce_grads_,
+    fill_missing_grads_,
+    make_optimizer,
+)
 from hairci_torch.train.state import TrainState
 
 
@@ -114,14 +128,22 @@ class SimCLRRecipe:
                    gen: torch.Generator, labels: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         """One step on a uint8 (B, H, W, 3) batch on the training device
-        (``labels`` unused). Returns the loss as a device tensor."""
-        B, H, W, _ = images.shape
-        v0, v1 = self.transform.apply(images, self.draw(gen, B, H, W)["views"])
+        (this rank's rows under data parallelism; ``labels`` unused).
+        Returns the loss as a device tensor."""
+        b, H, W, _ = images.shape
+        lo = collectives.rank() * b
+        views = self.draw(gen, b * collectives.world(), H, W)["views"]
+        v0, v1 = self.transform.apply(
+            images, [shard_draws(v, lo, lo + b) for v in views])
         return self.step_on_views(state, v0, v1)
 
     def step_on_views(self, state: TrainState, v0: torch.Tensor,
                       v1: torch.Tensor) -> Dict[str, torch.Tensor]:
         online = state.online
+        if collectives.active() and (self.s2r2_weight > 0
+                                     or self.backbone.startswith("vit")):
+            raise NotImplementedError(
+                "SimCLR's data-parallel step covers ResNets without S2R2")
         online.train()
         state.optimizer.zero_grad(set_to_none=True)
         out = online(torch.cat([v0, v1]))
@@ -130,6 +152,7 @@ class SimCLRRecipe:
         if self.s2r2_weight > 0:
             loss = loss + self.s2r2_weight * s2r2_loss(out, k_views=2)
         loss.backward()
+        all_reduce_grads_(state.optimizer)
         # a ViT's fixed position table and unused mask token still decay
         fill_missing_grads_(state.optimizer)
         state.optimizer.step()

@@ -11,6 +11,10 @@ module's device. SHAM, SimCLR, SupCon, MAE and SimMIM checkpoints keep the key
 sets they always had. The cadence
 follows the JAX engine: ``model_ckpt_<epoch>`` every 50 epochs plus
 ``model_ckpt_latest`` each epoch. JAX's Orbax directories cannot be read here (no JAX).
+Under data parallelism the state is the same on every rank and holds
+nothing of the world size (the negative cache is the global batch's): rank
+0 alone writes it (``train.engine``), and every rank of a run at any world
+size restores it.
 """
 
 from __future__ import annotations

@@ -16,6 +16,15 @@ and ``local_loss``, SHAM v1's ``global_loss``, ``local_loss`` and
 ``recon_loss`` too), and a checkpoint every 50 epochs plus
 ``model_ckpt_latest``; resume restores the EMA, SHAM's negative cache,
 DINOv2's centres and DenseCL's banks too.
+
+Data parallelism (``parallel``): the Trainer runs on a ``(data, model)``
+mesh of the process group's ranks (``create_mesh`` from
+``--n_model_shards`` unless one is given) and points the collectives at its
+``data`` axis. The loader hands each rank its rows of the global batch;
+the steps of SHAM and SimCLR on a ResNet are the global batch's, with the
+same metrics on every rank, and only rank 0 writes the logs and
+checkpoints. Every rank restores the same checkpoint, whatever world size
+wrote it.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 
 from hairci_torch.aug.ops import to_device
+from hairci_torch.parallel import DATA_AXIS, collectives, create_mesh
 from hairci_torch.train import checkpoint as ckpt_lib
 from hairci_torch.train.state import TrainState
 
@@ -65,15 +75,20 @@ def step_seed(seed: int, epoch: int, batch_id: int) -> int:
 
 class Trainer:
     def __init__(self, recipe, train_loader, args, device: torch.device,
-                 checkpoint_every: int = 50):
+                 checkpoint_every: int = 50, mesh=None):
         self.recipe = recipe
         self.train_loader = train_loader
         self.args = args
         self.device = device
+        self.mesh = mesh or create_mesh(
+            n_model=getattr(args, "n_model_shards", 1))
+        collectives.set_group(self.mesh.group(DATA_AXIS))
         self.checkpoint_every = checkpoint_every
         self.save_path = os.path.join(
             getattr(args, "save_path", "output_dir"), run_name(args))
-        os.makedirs(self.save_path, exist_ok=True)
+        self.main = collectives.is_main_process()
+        if self.main:
+            os.makedirs(self.save_path, exist_ok=True)
         self.log_file = os.path.join(self.save_path, "training_log.txt")
         self.metrics_file = os.path.join(self.save_path, "metrics.jsonl")
         self.start_epoch = 0
@@ -142,7 +157,7 @@ class Trainer:
                         np.asarray(labels, np.int64)), self.device)
                     metrics = self.recipe.train_step(state, x, gen, labels=y)
                 epoch_metrics.append(metrics)
-                n_images += images.shape[0]
+                n_images += images.shape[0] * self.mesh.shape[DATA_AXIS]
             if not epoch_metrics:
                 continue
             # one host sync per epoch
@@ -154,6 +169,8 @@ class Trainer:
                 self.prev_margin_violations = stacked["margin_violations"]
             stacked["epoch"] = epoch
             stacked["images_per_sec"] = n_images / (time.perf_counter() - t0)
+            if not self.main:
+                continue
             self._log_epoch(epoch, stacked, total_k)
 
             if (epoch + 1) % self.checkpoint_every == 0:

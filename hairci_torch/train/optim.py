@@ -5,7 +5,13 @@ after clipping by global norm in the optax form.
 As optax does, the optimizer holds every parameter, also those that take
 no gradient (a ViT's fixed position table, its unused mask token): the step
 gives them zero gradients (``fill_missing_grads_``), so they still decay and
-their Adam moments still shrink."""
+their Adam moments still shrink.
+
+Under data parallelism ``all_reduce_grads_`` averages the gradients over
+the ranks right after ``backward()``, before ``fill_missing_grads_`` and the
+clip, so the clip sees the global gradient, as under JAX's sharding; every
+rank then takes the same step and the parameters stay equal bit for bit.
+The model is not wrapped in DDP."""
 
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ from typing import Iterable, Optional
 
 import torch
 from torch import nn
+
+from hairci_torch.parallel import collectives
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -32,6 +40,17 @@ def make_optimizer(module: nn.Module, learning_rate: float,
                "weight_decay": 0.0}]
     return torch.optim.AdamW(groups, lr=learning_rate, betas=tuple(betas),
                              eps=1e-8)
+
+
+def all_reduce_grads_(optimizer: torch.optim.Optimizer) -> None:
+    """The mean over the ranks of every gradient of ``optimizer``, in one
+    coalesced all-reduce (nothing without a process group). A loss that
+    every rank computes from gathered rows gives each rank W times its
+    share of the gradient (``parallel.collectives``); the mean makes it the
+    global loss's gradient."""
+    collectives.all_reduce_mean_(
+        [p.grad for group in optimizer.param_groups for p in group["params"]
+         if p.grad is not None])
 
 
 @torch.no_grad()

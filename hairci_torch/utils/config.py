@@ -75,8 +75,8 @@ def build_pretrain_parser() -> argparse.ArgumentParser:
     # extras of the JAX package (not in the reference)
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
-    # multi-device flags of the JAX package, accepted and not yet used by
-    # the port (one card)
+    # multi-device flags of the JAX package: one process a card, with the
+    # batch split over the `data` axis (cli/mainpretrain.py)
     p.add_argument("--n_model_shards", type=int, default=1,
                    help="size of the `model` mesh axis")
     p.add_argument("--coordinator", type=str, default=None,
