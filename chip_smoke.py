@@ -279,7 +279,19 @@ Phases, in order; any failure raises and exits non-zero:
                 steps each). Then ShardedGalleryIndex over the 103,945 x
                 768 gallery on the one-rank mesh against GalleryIndex at
                 Q = 1 and 256, k=5: one top-k launch a search, the answer
-                the plain twin's under the near-tie rule, both timed.
+                the plain twin's under the near-tie rule, both timed. Then
+                one f32 step at 224, B=8, of DINOv2 (ViT-S/16, 65,536
+                prototypes, 2 + 8 views; the LayerScale gammas drawn first
+                so that KoLeo is not rounding noise), SiameseIM (ViT-B/16,
+                PermuteBN decoder), SHAM on ViT-B/16 with S2R2 (warmup) and
+                SimCLR with S2R2 (ResNet-50), each without a group and
+                through the one-rank group: the same kernel launches (0;
+                16 bn_stats; 1 rotate + 2 bn_stats; 55 bn_stats), the
+                group's collectives called, and the step equal at rtol 1e-5
+                (every metric, gradient, BN statistic, and DINOv2's
+                centres). Then the dry run's tensor-parallel CosFace head
+                (``cli.dryrun_multichip.part_tp``) over the one-rank mesh's
+                ``model`` group, held against the unsharded head.
 The last four lines are the card's name and power limit again, the serving
 numbers of phases 4d and 4e as one JSON object, the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -291,8 +303,14 @@ rotate wrappers of the ``hairci_torch`` package under DIR (see
 With ``--ranks N`` (N cards or more) it runs phases 1-2 and then phase 11
 on N cards, one NCCL rank a card (``_dp_rank``): SHAM and SimCLR on
 ResNet-50 at 224, bf16, at the global B=256 split over the N ranks, and on
-one card where it fits, each timed; the ranks' parameters equal after a
-step; the sharded search over N ranks against GalleryIndex on one card.
+one card where it fits, each timed; the same for DINOv2 (B=128, its
+config's), SiameseIM, SHAM on ViT-B/16 with S2R2 and SimCLR with S2R2; the
+ranks' parameters equal after a step; the sharded search over N ranks
+against GalleryIndex on one card; then ``python -m
+hairci_torch.cli.dryrun_multichip`` on the N cards and on one. With
+``--ranks N --profile`` SHAM's and SiameseIM's N-card steps are also
+traced on rank 0 and timed at fewer intra-op threads a rank, beside a
+traced one-card step at the same rows a rank (``_dp_profile``).
 """
 
 from __future__ import annotations
@@ -4741,6 +4759,161 @@ def _dp_search(index, queries: dict, g, tag: str, check: bool) -> dict:
     return out
 
 
+# the recipes whose data-parallel steps came after SHAM's and SimCLR's
+# ResNet steps, each at 224 in f32 for the step held with and without a
+# group: the kernels one step launches (DINOv2 reaches none; SiameseIM its
+# 16 PermuteBNs; SHAM on the ViT one rotation and the head's two BNs;
+# SimCLR the ResNet-50's 55 BNs) and the all-gathers it issues in the
+# forward (SHAM's pos1 views and NT-Xent's pairs, SimCLR's NT-Xent pairs,
+# one more for S2R2's keys, DINOv2's KoLeo rows of its two global views;
+# SiameseIM reduces its UniGrad and BN sums and gathers nothing)
+DP_RECIPES = {
+    "dinov2": {"launches": {"bn_stats": 0, "rotate_shear": 0},
+               "all_gather": 2},
+    "siameseim": {"launches": {"bn_stats": 16, "rotate_shear": 0},
+                  "all_gather": 0},
+    "SHAM_vit_s2r2": {"launches": {"bn_stats": 2, "rotate_shear": 1},
+                      "all_gather": 3},
+    "simclr_s2r2": {"launches": {"bn_stats": 55, "rotate_shear": 0},
+                    "all_gather": 2},
+}
+DP_RECIPE_BATCH = 8      # the f32 steps of DP_RECIPES
+# the modes of --ranks N and the all-gathers one step issues: SHAM's and
+# SimCLR's ResNet-50 steps (SHAM in its warmup stage), then DP_RECIPES
+DP_RANK_GATHERS = {"SHAM": 2, "simclr": 1,
+                   **{name: r["all_gather"] for name, r in DP_RECIPES.items()}}
+
+
+def _dp_recipe(name: str, dtype):
+    from hairci_torch.ssl import build_recipe
+
+    kw = dict(img_size=SIZE, weight_decay=1e-4, dtype=dtype)
+    if name == "SHAM":
+        return build_recipe("SHAM", backbone="resnet50", num_batches=1, **kw)
+    if name == "simclr":
+        return build_recipe("simclr", backbone="resnet50", **kw)
+    if name == "SHAM_vit_s2r2":
+        return build_recipe("SHAM", backbone="vit_b_16", num_batches=1,
+                            s2r2_weight=1.0, **kw)
+    if name == "simclr_s2r2":
+        return build_recipe("simclr", backbone="resnet50", s2r2_weight=1.0,
+                            **kw)
+    if name == "dinov2":
+        return build_recipe("dinov2", epochs=1, steps_per_epoch=1, **kw)
+    return build_recipe(name, **kw)
+
+
+def _dp_recipe_state(name: str, rec, B: int, dev):
+    """The recipe's seeded state; DINOv2's LayerScale gammas drawn in
+    [0.2, 1) in both branches (at their init of 1e-5 KoLeo's nearest
+    neighbour is rounding noise, phase 10)."""
+    import torch
+
+    state = rec.create_state(SEED, B, dev)
+    if name == "dinov2":
+        gen = torch.Generator().manual_seed(SEED)
+        with torch.no_grad():
+            for pname, p in state.online.named_parameters():
+                if pname.endswith(".gamma"):
+                    gamma = torch.rand(p.shape, generator=gen) * 0.8 + 0.2
+                    p.copy_(gamma)
+                    state.ema.get_parameter(pname).copy_(gamma)
+    return state
+
+
+def _dp_recipe_step(name: str, rec, state, images, seed: int = SEED):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    if name == "dinov2":
+        return rec.train_step(state, images, gen, teacher_temp=0.04,
+                              momentum=0.992)
+    if name == "siameseim":
+        return rec.train_step(state, images, gen, momentum=0.996)
+    if name in ("SHAM", "SHAM_vit_s2r2"):
+        return rec.train_step(state, images, gen, stage="warmup")
+    return rec.train_step(state, images, gen)
+
+
+def _dp_recipe_f32(name: str, images) -> dict:
+    """One f32 step of a DP_RECIPES entry from seeded weights: its metrics,
+    the gradients the optimizer took, the BN running statistics, DINOv2's
+    centres; the kernels' launches and the collectives of the step."""
+    import torch
+
+    from hairci_torch.parallel import collectives
+
+    rec = _dp_recipe(name, torch.float32)
+    state = _dp_recipe_state(name, rec, images.shape[0], images.device)
+    _reset_counts()
+    collectives.calls.update(all_gather=0, all_reduce=0)
+    t0 = time.perf_counter()
+    m = _dp_recipe_step(name, rec, state, images)
+    torch.cuda.synchronize()
+    out = {"s": time.perf_counter() - t0, "launches": _counts(),
+           "calls": dict(collectives.calls),
+           "metrics": {k: float(v) for k, v in m.items()},
+           "grads": {n: p.grad.detach().clone()
+                     for n, p in state.online.named_parameters()},
+           "running": {n: b.clone() for n, b in state.online.named_buffers()
+                       if "running" in n},
+           "extra": {k: v.clone() for k, v in (state.extra or {}).items()}}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _held(a: dict, b: dict, parts=("metrics", "grads", "running")) -> dict:
+    """For each part, the largest |a - b| over (1e-5 |b| + 1e-5 max|b| of
+    its tensor): at most 1 where a equals b at rtol 1e-5."""
+    import torch
+
+    worst = {}
+    for what in parts:
+        errs = [0.0]
+        for name, want in b[what].items():
+            got = torch.as_tensor(a[what][name], dtype=torch.float64)
+            want = torch.as_tensor(want, dtype=torch.float64)
+            scale = want.abs().max().item()
+            tol = 1e-5 * want.abs() + 1e-5 * scale + 1e-12
+            errs.append(((got - want).abs() / tol).max().item())
+        worst[what] = max(errs)
+    return worst
+
+
+def _dp_recipes_held(plain: dict, dp: dict) -> dict:
+    """The one-rank group's f32 step of each DP_RECIPES entry against the
+    step without a group: the same launches, the step's all-gathers and
+    some all-reduces with the group and no collective without it, every
+    metric, gradient, BN statistic and centre at rtol 1e-5."""
+    launches = {}
+    for name, r in DP_RECIPES.items():
+        p, d = plain[name], dp[name]
+        want = {"topk_gallery_search": 0, "conv3x3": 0, **r["launches"]}
+        if p["launches"] != want or d["launches"] != p["launches"]:
+            raise AssertionError(
+                f"dp {name}: launches {d['launches']} with the group, "
+                f"{p['launches']} without, want {want}")
+        if (d["calls"]["all_gather"] != r["all_gather"]
+                or not d["calls"]["all_reduce"] or any(p["calls"].values())):
+            raise AssertionError(
+                f"dp {name}: collectives {d['calls']} with the group (want "
+                f"{r['all_gather']} all-gathers), {p['calls']} without")
+        worst = _held(d, p, ("metrics", "grads", "running", "extra"))
+        print(f"dp f32 step {name} ({SIZE} px, B={DP_RECIPE_BATCH}): the "
+              f"one-rank group's against the step without a group, largest "
+              f"|difference| over (1e-5 |x| + 1e-5 max|x|): {worst}; loss "
+              f"{d['metrics']['loss']:.7f} vs {p['metrics']['loss']:.7f}; "
+              f"launches {d['launches']}; collectives {d['calls']}; "
+              f"{d['s']:.2f} s with the group, {p['s']:.2f} s without "
+              "(first call, host clock)")
+        if max(worst.values()) > 1:
+            raise AssertionError(f"dp f32 step {name}: off by {worst} of "
+                                 "rtol 1e-5")
+        launches[name] = d["launches"]
+    return launches
+
+
 def phase_dp(workdir: str) -> dict:
     """Phase 11: SHAM's step and the gallery search without a process group,
     then through a one-rank NCCL group (the data-parallel code that runs at
@@ -4767,6 +4940,10 @@ def phase_dp(workdir: str) -> dict:
     index = GalleryIndex(g, paths, normalized=True, device=dev)
     plain_search = _dp_search(index, queries, g_dev, "GalleryIndex", True)
     del index
+    t_recipes = time.perf_counter()
+    recipes_plain = {name: _dp_recipe_f32(name, images[:DP_RECIPE_BATCH])
+                     for name in DP_RECIPES}
+    t_recipes = time.perf_counter() - t_recipes
 
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method=f"tcp://localhost:{_free_port()}",
@@ -4782,6 +4959,11 @@ def phase_dp(workdir: str) -> dict:
         dp_search = _dp_search(index, queries, g_dev, "ShardedGalleryIndex",
                                True)
         del index
+        t0 = time.perf_counter()
+        recipes_dp = {name: _dp_recipe_f32(name, images[:DP_RECIPE_BATCH])
+                      for name in DP_RECIPES}
+        t_recipes += time.perf_counter() - t0
+        tp = _dp_tp(mesh, dev)
     finally:
         collectives.shutdown()
 
@@ -4797,49 +4979,128 @@ def phase_dp(workdir: str) -> dict:
             raise AssertionError(
                 f"dp {stage}: launches {dp['launches'][stage]} != "
                 f"{plain['launches'][stage]} without a group")
-        if not all(dp["calls"][stage].values()):
+        # the pos1 views and NT-Xent's pairs, and the EMA features to mine
+        gathers = 3 if stage == "mine" else 2
+        if (dp["calls"][stage]["all_gather"] != gathers
+                or not dp["calls"][stage]["all_reduce"]):
             raise AssertionError(f"dp {stage}: collectives "
-                                 f"{dp['calls'][stage]}")
+                                 f"{dp['calls'][stage]}, want {gathers} "
+                                 "all-gathers and some all-reduces")
     # the one-rank step is the step: every metric, BN statistic and clipped
     # gradient of the f32 step at rtol 1e-5
-    worst = {}
-    for what in ("metrics", "grads", "running"):
-        a, b = f32_dp[what], f32_plain[what]
-        errs = []
-        for name, want in b.items():
-            got = torch.as_tensor(a[name], dtype=torch.float64)
-            want = torch.as_tensor(want, dtype=torch.float64)
-            scale = want.abs().max().item()
-            tol = 1e-5 * want.abs() + 1e-5 * scale + 1e-12
-            errs.append(((got - want).abs() / tol).max().item())
-        worst[what] = max(errs)
-        if worst[what] > 1:
-            raise AssertionError(f"dp f32 step: {what} off by {worst[what]} "
-                                 "of rtol 1e-5")
+    worst = _held(f32_dp, f32_plain)
+    if max(worst.values()) > 1:
+        raise AssertionError(f"dp f32 step: off by {worst} of rtol 1e-5")
     print(f"dp f32 step (B={DP_F32_BATCH}, warmup): the one-rank group's "
           f"against the step without a group, largest |difference| over "
           f"(1e-5 |x| + 1e-5 max|x|): {worst}; loss "
           f"{f32_dp['metrics']['loss']:.7f} vs "
           f"{f32_plain['metrics']['loss']:.7f}")
+    recipe_launches = _dp_recipes_held(recipes_plain, recipes_dp)
+    print(f"dp: the four recipes' f32 steps, with and without the group, "
+          f"took {t_recipes:.1f} s (host clock, builds included)")
     launches = {name: sum(dp["launches"][s][name] for s in DP_STAGES)
+                + sum(r[name] for r in recipe_launches.values())
                 for name in dp["launches"]["warmup"]}
     launches["topk_gallery_search"] = len(dp_search)
     torch.cuda.empty_cache()
-    return {"launches": launches, "search": {"plain": plain_search,
-                                            "dp": dp_search}}
+    return {"launches": launches, "recipe_launches": recipe_launches,
+            "tp": tp, "search": {"plain": plain_search, "dp": dp_search}}
+
+
+def _dp_tp(mesh, dev) -> dict:
+    """The dry run's tensor-parallel CosFace head over the mesh's ``model``
+    group (one rank here): its loss and step against the unsharded head's,
+    and the collectives it called."""
+    from hairci_torch.cli.dryrun_multichip import part_tp
+    from hairci_torch.parallel import collectives
+
+    collectives.calls.update(all_gather=0, all_reduce=0)
+    out = part_tp(mesh, dev, B=16)
+    out["calls"] = dict(collectives.calls)
+    if out["calls"]["all_gather"] < 1:
+        raise AssertionError(f"TP head: collectives {out['calls']}")
+    print(f"dp TP CosFace head (64 classes x 32 on the one-rank model "
+          f"group, B=16): loss {out['loss']:.6f}, "
+          f"|loss - unsharded| {out['loss_err']:.3g}, largest |step - "
+          f"unsharded step| {out['step_err']:.3g}; collectives "
+          f"{out['calls']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
 # --ranks N: phase 11 on N cards, one NCCL rank a card
 # ---------------------------------------------------------------------------
 
-def _dp_rank(rank: int, n: int, port: int, workdir: str) -> None:
-    """One rank of ``--ranks N``: SHAM and SimCLR (ResNet-50, 224, bf16) at
-    the global B=256 on N cards (B/N a rank) and on one card (rank 0 alone,
-    through a one-rank group, where 4 x the peak of a rank's step stays
-    below 75 GiB), each timed; the kernels' launches and the collectives of
-    the N-card step; equal parameters on every rank; the sharded search on
-    N cards against GalleryIndex on one."""
+DP_PROFILE = ("SHAM", "siameseim")   # the modes --profile traces
+
+
+def _dp_profile(rec, state, step, x) -> dict:
+    """Three steps of ``step`` on ``x`` under torch.profiler, each
+    synchronised: per step, the host clock's wall time, the host time of
+    the recipe's draws (``rec.draw``, for the global batch under a group),
+    the card's busy time (the union of its kernels' and copies' intervals:
+    NCCL runs on a stream of its own), the NCCL kernels' time, and the
+    card's idle share of the wall time. The traced steps carry the
+    profiler's own host cost."""
+    import torch
+
+    from hairci_torch.utils.profiling import annotate
+
+    draw = rec.draw
+
+    def traced_draw(*args, **kw):
+        with annotate("dp_draw"):
+            return draw(*args, **kw)
+
+    rec.draw = traced_draw
+    walls = []
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, x, 20 + i)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        del rec.draw   # the class's method again
+    spans, nccl_us, draw_us = [], 0.0, 0.0
+    for e in prof.events():
+        if getattr(e, "is_user_annotation", False) or e.name == "dp_draw":
+            if e.device_type == torch.autograd.DeviceType.CPU \
+                    and e.name == "dp_draw":
+                draw_us += e.time_range.elapsed_us()
+            continue
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            if "nccl" in e.name.lower():
+                nccl_us += e.time_range.elapsed_us()
+    busy_us, end = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    wall = sum(walls) / 3
+    return {"wall_ms": wall, "draw_ms": draw_us / 3e3,
+            "busy_ms": busy_us / 3e3, "nccl_ms": nccl_us / 3e3,
+            "idle_share": 1 - busy_us / 3e3 / wall,
+            "threads": torch.get_num_threads()}
+
+
+def _dp_rank(rank: int, n: int, port: int, workdir: str,
+             profile: bool = False) -> None:
+    """One rank of ``--ranks N``: SHAM and SimCLR (ResNet-50, 224, bf16) and
+    the DP_RECIPES (bf16) at the global B=256 (DINOv2 at its config's 128)
+    on N cards (B/N a rank) and on one card (rank 0 alone, through a
+    one-rank group, where N x the peak of a rank's step stays below 75
+    GiB), each timed; the kernels' launches and the collectives of the
+    N-card step; equal parameters on every rank; the sharded search on N
+    cards against GalleryIndex on one. With ``profile``, the DP_PROFILE
+    modes also trace three N-card steps on every rank, time the N-card step
+    again at (host cores / N) intra-op threads a rank, and on rank 0 trace
+    a one-card step at the same b rows a rank (``_dp_profile``)."""
     sys.path.insert(0, REPO)
     import torch
     import torch.distributed as dist
@@ -4847,7 +5108,6 @@ def _dp_rank(rank: int, n: int, port: int, workdir: str) -> None:
     from hairci_torch.parallel import collectives, create_mesh
     from hairci_torch.retrieval import ShardedGalleryIndex
     from hairci_torch.retrieval.index import GalleryIndex
-    from hairci_torch.ssl import build_recipe
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4859,22 +5119,17 @@ def _dp_rank(rank: int, n: int, port: int, workdir: str) -> None:
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 init_method=f"tcp://localhost:{port}",
                                 rank=0, world_size=1)
-    B = DP_GLOBAL_BATCH
-    b = B // n
-    images = _dp_images(workdir, B)
-    mine = images[rank * b:(rank + 1) * b].to(dev)
+    images = _dp_images(workdir, DP_GLOBAL_BATCH)
     one = dist.new_group([0])
-    res = {"ranks": n, "global_batch": B, "card": _card_line()}
-    for mode in ("SHAM", "simclr"):
-        kw = {"num_batches": 1} if mode == "SHAM" else {}
-        rec = build_recipe(mode, backbone="resnet50", img_size=SIZE,
-                           weight_decay=1e-4, dtype=torch.bfloat16, **kw)
+    res = {"ranks": n, "global_batch": DP_GLOBAL_BATCH, "card": _card_line()}
+    for mode in DP_RANK_GATHERS:
+        B = 128 if mode == "dinov2" else DP_GLOBAL_BATCH
+        b = B // n
+        mine = images[rank * b:(rank + 1) * b].to(dev)
+        rec = _dp_recipe(mode, torch.bfloat16)
 
         def step(state, x, i):
-            gen = torch.Generator().manual_seed(1000 + i)
-            if mode == "SHAM":
-                return rec.train_step(state, x, gen, stage="warmup")
-            return rec.train_step(state, x, gen)
+            return _dp_recipe_step(mode, rec, state, x, 1000 + i)
 
         def timed(state, x):
             times = []
@@ -4893,9 +5148,18 @@ def _dp_rank(rank: int, n: int, port: int, workdir: str) -> None:
         collectives.calls.update(all_gather=0, all_reduce=0)
         step(state, mine, 0)
         torch.cuda.synchronize()
-        row = {"launches": _counts(), "calls": dict(collectives.calls),
+        row = {"global_batch": B, "launches": _counts(),
+               "calls": dict(collectives.calls),
                "ms_n_cards": timed(state, mine)}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if profile and mode in DP_PROFILE:
+            row["profile"] = _dp_profile(rec, state, step, mine)
+            threads = torch.get_num_threads()
+            cut = max(1, len(os.sched_getaffinity(0)) // n)
+            torch.set_num_threads(cut)
+            row["profile"]["threads_cut"] = cut
+            row["profile"]["ms_threads_cut"] = timed(state, mine)
+            torch.set_num_threads(threads)
         sums = torch.stack([p.detach().double().sum()
                             for p in state.online.parameters()])
         every = collectives.all_gather(sums[None])
@@ -4906,12 +5170,22 @@ def _dp_rank(rank: int, n: int, port: int, workdir: str) -> None:
         if rank == 0 and peak * n < 75:
             collectives.set_group(one)
             state = rec.create_state(SEED, B, dev)
-            row["ms_one_card"] = timed(state, images.to(dev))
+            row["ms_one_card"] = timed(state, images[:B].to(dev))
             collectives.set_group(None)
             del state
             torch.cuda.empty_cache()
         elif rank == 0:
             row["ms_one_card"] = None
+        if profile and mode in DP_PROFILE and rank == 0:
+            collectives.set_group(one)
+            state = rec.create_state(SEED, b, dev)
+            x = images[:b].to(dev)
+            row["profile_one_card"] = {
+                "ms": timed(state, x),
+                **_dp_profile(rec, state, step, x)}
+            collectives.set_group(None)
+            del state, x
+            torch.cuda.empty_cache()
         res[mode] = row
         dist.barrier()
     g, queries = _dp_gallery()
@@ -4933,9 +5207,9 @@ def _dp_rank(rank: int, n: int, port: int, workdir: str) -> None:
     collectives.shutdown()
 
 
-def dp_ranks(n: int) -> int:
-    """``python3 chip_smoke.py --ranks N``: phases 1-2, then phase 11 on N
-    cards (``_dp_rank``), one process a card."""
+def dp_ranks(n: int, profile: bool = False) -> int:
+    """``python3 chip_smoke.py --ranks N [--profile]``: phases 1-2, then
+    phase 11 on N cards (``_dp_rank``), one process a card."""
     import torch
 
     device = phase_device()
@@ -4945,18 +5219,60 @@ def dp_ranks(n: int) -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",
                                      dir=REPO) as workdir:
         torch.multiprocessing.spawn(_dp_rank,
-                                    args=(n, _free_port(), workdir),
+                                    args=(n, _free_port(), workdir,
+                                          profile),
                                     nprocs=n)
         with open(os.path.join(workdir, "dp_ranks.json")) as f:
             res = json.load(f)
-    for mode in ("SHAM", "simclr"):
+    for mode, gathers in DP_RANK_GATHERS.items():
         r = res[mode]
-        if not (r["params_equal"] and all(r["calls"].values())):
-            raise AssertionError(f"--ranks {n} {mode}: {r}")
-        print(f"dp {mode} resnet50 {SIZE}px bf16 B={res['global_batch']}: "
+        if not (r["params_equal"] and r["calls"]["all_reduce"]
+                and r["calls"]["all_gather"] == gathers):
+            raise AssertionError(f"--ranks {n} {mode}: {r}, want {gathers} "
+                                 "all-gathers and some all-reduces")
+        what = f"{mode} resnet50" if mode in ("SHAM", "simclr") else mode
+        print(f"dp {what} {SIZE}px bf16 B={r['global_batch']}: "
               f"{n} cards {r['ms_n_cards']:.2f} ms/step, one card "
               f"{r['ms_one_card']} ms/step (host clock, median of 10 after "
               f"3); launches a rank {r['launches']}; collectives {r['calls']}")
+        if "profile" in r:
+            b = r["global_batch"] // n
+            for what, p in ((f"{n} cards, rank 0", r["profile"]),
+                            ("one card", r.get("profile_one_card"))):
+                if p is None:
+                    continue
+                print(f"dp profile {what}: {mode} b={b} a rank, 3 steps "
+                      f"under torch.profiler (host clock, synchronised): "
+                      f"wall {p['wall_ms']:.2f} ms/step, the draws on the "
+                      f"host {p['draw_ms']:.2f}, the card busy "
+                      f"{p['busy_ms']:.2f} (NCCL kernels {p['nccl_ms']:.2f}), "
+                      f"idle share {p['idle_share']:.3f}; {p['threads']} "
+                      "intra-op threads")
+            p = r["profile"]
+            print(f"dp profile {n} cards: {mode} at {p['threads_cut']} "
+                  f"intra-op threads a rank {p['ms_threads_cut']:.2f} "
+                  f"ms/step, at {p['threads']} {r['ms_n_cards']:.2f} "
+                  f"(host clock, median of 10 after 3)")
+    # the dry run's five parts on the N cards and on one
+    res["dryrun"] = {}
+    for ranks in (n, 1):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hairci_torch.cli.dryrun_multichip",
+             "--ranks", str(ranks)], cwd=REPO, capture_output=True,
+            text=True, timeout=600)
+        lines = [line for line in proc.stdout.splitlines()
+                 if line.startswith("dryrun_multichip(")]
+        print("\n".join(lines))
+        if proc.returncode != 0 or len(lines) != 5:
+            sys.stderr.write(proc.stderr[-4000:])
+            raise AssertionError(f"dryrun_multichip --ranks {ranks}: rc "
+                                 f"{proc.returncode}, {len(lines)} lines")
+        res["dryrun"][ranks] = {"s": time.perf_counter() - t0,
+                                "lines": lines}
+        print(f"dryrun_multichip --ranks {ranks}: "
+              f"{res['dryrun'][ranks]['s']:.1f} s (host clock, the process "
+              "and its ranks' start-up included)")
     print(_card_line())
     print(json.dumps({"dp_ranks": res}))
     device["count"] = n
@@ -4972,7 +5288,7 @@ def main() -> int:
         return kernel_times(sys.argv[2] if len(sys.argv) > 2 else REPO)
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--ranks"]:
-        return dp_ranks(int(sys.argv[2]))
+        return dp_ranks(int(sys.argv[2]), "--profile" in sys.argv[3:])
     device = phase_device()
     phase_build()
     kern = phase_kernels()
@@ -5202,14 +5518,18 @@ def main() -> int:
         for mode, run in runs_by_mode.items():
             row[f"launches_{mode.lower()}"] = (run["launches"][key]
                                                + run["knn_launches"][key])
-        # phase 11: the SHAM steps (warmup, mine, mined) and the sharded
-        # searches (Q = 1: fma, Q = 256: mma) through a one-rank group
+        # phase 11: the SHAM steps (warmup, mine, mined), the f32 steps of
+        # DINOv2, SiameseIM, SHAM on the ViT with S2R2 and SimCLR with S2R2
+        # (launches_dp_recipes, each), and the sharded searches (Q = 1:
+        # fma, Q = 256: mma), all through a one-rank group
         if key == "topk_gallery_search":
             route = "mma" if row["name"].endswith("batched") else "fma"
             row["launches_dp"] = sum(r["routes"][route]
                                      for r in dp["search"]["dp"].values())
         else:
             row["launches_dp"] = dp["launches"][key]
+        row["launches_dp_recipes"] = {
+            name: n[key] for name, n in dp["recipe_launches"].items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -31,13 +31,14 @@ rendezvous at ``--coordinator`` (NCCL on cards; rank i takes card
 model)`` mesh of ``--num_processes / --n_model_shards`` by
 ``--n_model_shards`` ranks. ``--batch_size`` is the global batch: each rank
 decodes and trains on its rows of the batch the one-process run sees, and
-the step is that run's (``ssl.sham``, ``ssl.simclr``). The batch is split
-over ``data`` only, as in JAX. A batch the ``data`` axis does not divide is
-refused: JAX shrinks the axis to ``gcd(batch, devices)`` instead, but a
-process that owns a card cannot sit idle without changing the result. Only
-SHAM and simclr on a ResNet without ``--S2R2`` have a global-batch step
-yet; every other mode or option exits under ``--num_processes`` > 1, naming
-the gap, rather than train W independent runs.
+the step is that run's (``ssl.sham``, ``ssl.simclr``, ``ssl.dinov2``,
+``ssl.siameseim``). The batch is split over ``data`` only, as in JAX. A
+batch the ``data`` axis does not divide is refused: JAX shrinks the axis to
+``gcd(batch, devices)`` instead, but a process that owns a card cannot sit
+idle without changing the result. SHAM, simclr and S2R2 (on a ResNet or
+the ViT, with or without ``--S2R2``), dinov2 and siameseim have a
+global-batch step; every other mode exits under ``--num_processes`` > 1,
+naming the gap, rather than train W independent runs.
 """
 
 from __future__ import annotations
@@ -61,9 +62,9 @@ __all__ = ["DATA_PARALLEL_MODES", "PORTED_MODES", "build_recipe_from_args",
 PORTED_MODES = ("SHAM", "simclr", "S2R2", "simclr_supcon", "mae", "simMIM",
                 "dinov2", "MSN", "BYOL", "DenseCL", "siameseim")
 # the modes whose step is the global batch's under several processes
-DATA_PARALLEL_MODES = ("SHAM", "simclr")
-_DP_GAP = ("(ROADMAP.md, queue 1: the data-parallel loss terms of the other "
-           "recipes)")
+DATA_PARALLEL_MODES = ("SHAM", "simclr", "S2R2", "dinov2", "siameseim")
+_DP_GAP = ("(ROADMAP.md, queue 1: the data-parallel steps of SupCon, MSN, "
+           "BYOL, DenseCL, MAE, SimMIM and SHAM v1)")
 
 
 def check_data_parallel(args) -> None:
@@ -77,14 +78,8 @@ def check_data_parallel(args) -> None:
     if args.mode not in DATA_PARALLEL_MODES:
         raise SystemExit(
             f"{where}: --mode {args.mode} has no data-parallel step yet; "
-            f"only {' and '.join(DATA_PARALLEL_MODES)} on a ResNet train on "
-            f"several processes {_DP_GAP}")
-    if args.S2R2 or args.model.startswith("vit"):
-        what = "--S2R2" if args.S2R2 else f"--model {args.model}"
-        raise SystemExit(
-            f"{where}: {what} has no data-parallel step yet; only "
-            f"{' and '.join(DATA_PARALLEL_MODES)} on a ResNet without "
-            f"--S2R2 train on several processes {_DP_GAP}")
+            f"only {', '.join(DATA_PARALLEL_MODES)} train on several "
+            f"processes {_DP_GAP}")
     if n % args.n_model_shards:
         raise SystemExit(f"{where} does not divide by --n_model_shards "
                          f"{args.n_model_shards}")

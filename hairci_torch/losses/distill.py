@@ -6,6 +6,13 @@ All are functions of their inputs; what the JAX package carries in the
 train state (the DINO and iBOT centres) comes back as a new tensor, without
 a gradient. The products over prototypes and KoLeo's similarities are f32,
 as ``preferred_element_type=f32`` makes them in JAX.
+
+Under data parallelism (``parallel.collectives``) DINO's and KoLeo's batch
+quantities are the global batch's, as under JAX's sharding: DINO's
+cross-entropy terms and its centre are global means (the centre comes out
+bitwise equal on every rank), and KoLeo takes each rank's rows' nearest
+neighbours among every rank's rows. The iBOT loss of the DINOv2 step is
+global in ``ssl.dinov2``; the others here are per-rank functions.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+
+from hairci_torch.parallel import collectives
 
 
 def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -64,11 +73,12 @@ def dino_loss(teacher_out: Sequence[torch.Tensor],
         for is_, sl in enumerate(s_logp):
             if it == is_:
                 continue
-            total = total + torch.mean(-torch.sum(tp * sl, dim=-1))
+            total = total + collectives.global_mean(
+                -torch.sum(tp * sl, dim=-1))
             n_terms += 1
     loss = total / max(n_terms, 1)
-    batch_center = torch.mean(torch.cat(list(teacher_out), dim=0), dim=0,
-                              keepdim=True)
+    batch_center = collectives.all_reduce_mean(torch.mean(
+        torch.cat(list(teacher_out), dim=0), dim=0, keepdim=True))
     new_center = center * center_momentum + batch_center * (
         1 - center_momentum)
     return loss, new_center.detach()
@@ -100,14 +110,21 @@ def ibot_patch_loss(teacher_patch_out: torch.Tensor,
 def koleo_loss(z: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """KoLeo (DINOv2): -mean(log(distance to the nearest other row)) of the
     normalised rows, as -0.5 * mean(log(d^2 + eps)), which stays finite
-    where two rows coincide (the square root's gradient would not)."""
+    where two rows coincide (the square root's gradient would not). Under
+    data parallelism ``z`` is this rank's rows: their neighbours are sought
+    among every rank's rows (gathered with their gradient), self excluded
+    at the global row, and the mean is the global batch's."""
     z = _normalize(z, eps)
-    sim = torch.matmul(z.float(), z.float().T)
-    sim = sim - 2.0 * torch.eye(z.shape[0], dtype=sim.dtype,
-                                device=sim.device)   # exclude self
+    b = z.shape[0]
+    # without a process group the same steps and no collective
+    keys = collectives.all_gather(z).float()
+    own = collectives.rank() * b + torch.arange(b, device=z.device)
+    sim = torch.matmul(keys[own], keys.T)
+    sim = sim - 2.0 * torch.nn.functional.one_hot(
+        own, keys.shape[0]).to(sim.dtype)                 # exclude self
     nn_sim = torch.max(sim, dim=1).values
     d2 = torch.clamp(2.0 - 2.0 * nn_sim, min=0.0)
-    return -0.5 * torch.mean(torch.log(d2 + eps))
+    return -0.5 * collectives.global_mean(torch.log(d2 + eps))
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,11 @@
 
 Patches are flattened in (p, q, c) order, rows of patches in raster order,
 as the JAX package flattens them. Variances are population variances.
+
+Under data parallelism (``parallel.collectives``) UniGrad is the global
+batch's, as under JAX's sharding: its means are global and the targets'
+correlation is the sum of every rank's ``targetᵀ target`` over the global
+row count. MAE's and SimMIM's losses here are per-rank functions.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from hairci_torch.parallel import collectives
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -75,11 +82,14 @@ def unigrad_loss(pred: torch.Tensor, target: torch.Tensor,
     """UniGrad: pred standardised when ``online_ln`` (gradient flows),
     target standardised without gradient;
     L = (E||pred - target||^2 + neg_weight E[pred C pred^T]) / dim with
-    C = target^T target / B in f32 over the batch given."""
+    C = target^T target / B in f32 over the batch given (every rank's rows
+    under data parallelism: the means and C are global)."""
     if online_ln:
         pred = _standardize(pred)
     target = _standardize(target).detach()
-    pos = torch.square(pred - target).sum(-1).mean()
-    corr = (target.float().T @ target.float()) / target.shape[0]
-    neg = torch.einsum("bi,ij,bj->b", pred, corr.to(pred.dtype), pred).mean()
+    pos = collectives.global_mean(torch.square(pred - target).sum(-1))
+    corr = collectives.all_reduce_sum(target.float().T @ target.float()) \
+        / (target.shape[0] * collectives.world())
+    neg = collectives.global_mean(
+        torch.einsum("bi,ij,bj->b", pred, corr.to(pred.dtype), pred))
     return (pos + neg_weight * neg) / pred.shape[-1]

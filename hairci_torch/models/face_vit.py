@@ -6,7 +6,9 @@
     and, with ``overlapping=True``, ``ViTs_face`` (12 x 12 windows at stride
     8, pad 4, as ``nn.Unfold`` cuts them: 196 patches at 112 px as well);
   * ``margin_logits``: the Softmax / CosFace / ArcFace / SFace heads on the
-    (num_class, dim) classifier weight, and ``sface_loss``.
+    (num_class, dim) classifier weight, and ``sface_loss``;
+  * ``tp_margin_logits``: the same head with the weight's class rows split
+    over the ``model`` group of a mesh (tensor parallelism).
 
 Numerics follow the Flax modules:
   * the residual stream is in the module's ``dtype``; each Dense layer casts
@@ -35,10 +37,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from hairci_torch.models.vit import LayerNorm, _dense, gelu
+from hairci_torch.parallel import collectives
 
 LOSS_TYPES = ("Softmax", "CosFace", "ArcFace", "SFace")
 
@@ -55,9 +59,12 @@ def _norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 def margin_logits(w: torch.Tensor, emb: torch.Tensor,
                   label: Optional[torch.Tensor], loss_type: str,
                   s: float = 64.0, m: float = 0.35, arc_m: float = 0.5,
-                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  bias: Optional[torch.Tensor] = None,
+                  class_offset: int = 0) -> torch.Tensor:
     """Margin-softmax logits (B, num_class) in f32 from the (num_class, dim)
-    classifier weight ``w``; ``label=None`` gives the scaled cosines."""
+    classifier weight ``w``; ``label=None`` gives the scaled cosines. ``w``
+    may be a block of the classes that starts at ``class_offset``: the
+    one-hot then marks the labels in that block."""
     if loss_type == "Softmax":
         out = torch.matmul(emb.float(), w.float().T)
         return out + bias if bias is not None else out
@@ -65,7 +72,9 @@ def margin_logits(w: torch.Tensor, emb: torch.Tensor,
     cos = torch.clamp(cos, -1.0, 1.0)
     if label is None:
         return s * cos
-    onehot = F.one_hot(label.long(), w.shape[0]).to(cos.dtype)
+    cls = torch.arange(class_offset, class_offset + w.shape[0],
+                       device=cos.device)
+    onehot = (label.long()[:, None] == cls).to(cos.dtype)
     if loss_type == "CosFace":
         phi = cos - m
     elif loss_type == "ArcFace":
@@ -80,6 +89,31 @@ def margin_logits(w: torch.Tensor, emb: torch.Tensor,
     else:
         raise ValueError(f"unknown loss_type {loss_type!r}")
     return s * (onehot * phi + (1.0 - onehot) * cos)
+
+
+def tp_margin_logits(w_shard: torch.Tensor, emb: torch.Tensor,
+                     label: Optional[torch.Tensor], loss_type: str, group,
+                     s: float = 64.0, m: float = 0.35, arc_m: float = 0.5,
+                     bias_shard: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """``margin_logits`` with the classifier's class rows split over
+    ``group`` (the ``model`` axis: ``Mesh.group(MODEL_AXIS)``, the split
+    ``parallel.model_sharding(mesh, axis=0, ndim=2)`` describes):
+    ``w_shard`` (and, for Softmax, ``bias_shard``) is this rank's
+    contiguous block of rows, in group-rank order. Each rank computes its
+    classes' logits and the (B, num_class) logits are gathered over the
+    group. The embeddings enter through ``copy_to_group`` (their gradient
+    is the sum of every shard's) and the logits leave through
+    ``gather_from_group`` (the weight's gradient is the loss's, not the
+    group size's multiple of it). The ranks of the group must hold the
+    same ``emb`` rows. Without a process group, ``margin_logits`` on the
+    one shard."""
+    lo = dist.get_rank(group) * w_shard.shape[0] \
+        if collectives.active() else 0
+    out = margin_logits(w_shard, collectives.copy_to_group(emb, group),
+                        label, loss_type, s, m, arc_m, bias_shard, lo)
+    # the (rows, B) blocks of every shard, stacked in class order
+    return collectives.gather_from_group(out.T.contiguous(), group).T
 
 
 def sface_loss(cos: torch.Tensor, label: torch.Tensor, s: float = 64.0,

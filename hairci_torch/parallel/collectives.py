@@ -11,7 +11,10 @@ itself:
   - ``all_reduce_sum`` / ``all_reduce_mean``: differentiable;
   - ``global_mean``: the mean of a per-row quantity over the global batch;
   - ``all_reduce_mean_``: one coalesced, in-place all-reduce mean of many
-    tensors (the gradients, ``train.optim.all_reduce_grads_``).
+    tensors (the gradients, ``train.optim.all_reduce_grads_``);
+  - ``gather_from_group`` / ``copy_to_group``: the tensor-parallel pair,
+    for ranks that compute the SAME loss (the ``model`` group of a mesh,
+    ``models.face_vit.tp_margin_logits``).
 
 They act on the *data group*: the ranks that split the batch (the whole
 world, or the ``data`` axis of a mesh with a ``model`` axis: ``set_group``).
@@ -28,6 +31,14 @@ and the mean of the ranks' parameter gradients that ``all_reduce_mean_``
 takes after ``backward()`` divides that W out: it is the global loss's
 gradient. A term written as a ``global_mean`` of local rows is replicated
 the same way and needs no other care.
+
+The tensor-parallel pair is for the other case: the ranks of a ``model``
+group hold the same rows and each computes the same loss from the gathered
+shards, so that loss counts once, not once a rank. ``gather_from_group``
+gathers in the forward and only slices in the backward (the gradient each
+rank holds is already the whole loss's), and ``copy_to_group`` is the
+identity whose backward sums the shards' partial gradients over the group.
+Both name their group: they never fall back to the data group.
 """
 
 from __future__ import annotations
@@ -158,6 +169,53 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return _reduce(grad, ctx.group), None
+
+
+class _GatherSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.rows = x.shape[0]
+        return _gather(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = dist.get_rank(ctx.group) * ctx.rows
+        return grad[lo:lo + ctx.rows], None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce(grad, ctx.group), None
+
+
+def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank of ``group``'s ``x`` concatenated on dim 0 in group-rank
+    order; the backward keeps this rank's rows of the incoming gradient
+    and reduces nothing (the tensor-parallel gather: every rank of the
+    group computes the same loss). ``x`` itself without a process group."""
+    if not active():
+        return x
+    if group is None:
+        raise ValueError("gather_from_group needs its group")
+    return _GatherSlice.apply(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; the backward sums the incoming gradient over
+    ``group`` (an input that every shard of the group reads). ``x`` itself
+    without a process group."""
+    if not active():
+        return x
+    if group is None:
+        raise ValueError("copy_to_group needs its group")
+    return _CopyToGroup.apply(x, group)
 
 
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:

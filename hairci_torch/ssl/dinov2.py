@@ -28,6 +28,19 @@ decay is fixed: the JAX recipe's docstring promises a cosine from 0.04 to
 The port updates the state in place. ``train_step`` draws every random
 parameter from one CPU generator (``draw``) and hands views and mask to
 ``step_on_views``, so a test can feed JAX's.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding. ``images`` are this rank's
+rows ``[r b, (r+1) b)`` of the global batch of B = W b. Every rank draws
+the views and the block scores for all B from the same generator and keeps
+its rows: of each view, and of each half of the scores, which are drawn
+for 2B rows ordered [view 1 of all B; view 2 of all B]. DINO's terms and
+centre and KoLeo are global in ``losses.distill``; the iBOT loss and centre
+are weighted means whose numerators and weight (the masked-token count)
+are summed over the ranks before the division, since the ranks hold
+different mask counts. The gradients are averaged over the ranks before
+the optimizer (``train.optim.all_reduce_grads_``), so the parameters, the
+teacher and both centres stay equal bit for bit on every rank.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from hairci_torch.aug.pipelines import (
     MultiViewTransform,
     dino_transform,
     knn_transform,
+    shard_draws,
 )
 from hairci_torch.losses.distill import dino_loss, koleo_loss
 from hairci_torch.models.heads import DINOHead
@@ -53,8 +67,13 @@ from hairci_torch.models.masking import (
     random_block_mask_from_scores,
 )
 from hairci_torch.models.vit import VIT_CONFIGS, build_vit
+from hairci_torch.parallel import collectives
 from hairci_torch.ssl.base import eval_features, register_recipe
-from hairci_torch.train.optim import fill_missing_grads_, make_optimizer
+from hairci_torch.train.optim import (
+    all_reduce_grads_,
+    fill_missing_grads_,
+    make_optimizer,
+)
 from hairci_torch.train.schedules import (
     cosine_schedule,
     linear_warmup_schedule,
@@ -187,14 +206,18 @@ class DINOv2Recipe:
     def train_step(self, state: TrainState, images: torch.Tensor,
                    gen: torch.Generator, teacher_temp: float = 0.04,
                    momentum: float = 0.992) -> Dict[str, torch.Tensor]:
-        """One step on a uint8 (B, H, W, 3) batch on the training device.
-        Returns the loss terms as device tensors."""
-        B, H, W, _ = images.shape
+        """One step on a uint8 (b, H, W, 3) batch on the training device
+        (this rank's rows under data parallelism). Returns the loss terms
+        as device tensors."""
+        b, H, W, _ = images.shape
+        B, lo = b * collectives.world(), collectives.rank() * b
         draws = self.draw(gen, B, H, W)
-        views = self.transform.apply(images, draws["views"])
+        views = self.transform.apply(
+            images, [shard_draws(v, lo, lo + b) for v in draws["views"]])
+        scores = draws["scores"]       # [view 1 of all B; view 2 of all B]
+        scores = torch.cat([scores[lo:lo + b], scores[B + lo:B + lo + b]])
         block_mask = random_block_mask_from_scores(
-            to_device(draws["scores"], images.device), self.grid,
-            self.mask_ratio)
+            to_device(scores, images.device), self.grid, self.mask_ratio)
         return self.step_on_views(state, views, block_mask, teacher_temp,
                                   momentum)
 
@@ -232,6 +255,7 @@ class DINOv2Recipe:
         total = d_loss + i_loss + k_loss
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        all_reduce_grads_(state.optimizer)
         # the fixed position table takes no gradient and still decays
         fill_missing_grads_(state.optimizer)
         state.optimizer.step()
@@ -253,8 +277,10 @@ class DINOv2Recipe:
         gathered backbone tokens, w (R, M) is 1 for a masked token, 0 for
         padding. Each chunk's head and cross-entropy are recomputed in the
         backward pass, so at most chunk x M x out_dim logits exist at once;
-        the sums are those of the unchunked loss, in another order.
-        Returns (loss, new centre)."""
+        the sums are those of the unchunked loss, in another order, and
+        under data parallelism every rank's (one all-reduce of the
+        cross-entropy sum, the weight and the teacher-logit sums before
+        the divisions). Returns (loss, new centre)."""
         def chunk(t, s, wc):
             with torch.no_grad():
                 t_out = teacher.patch_logits(t)
@@ -272,9 +298,12 @@ class DINOv2Recipe:
             parts.append(checkpoint(chunk, *args, use_reentrant=False)
                          if torch.is_grad_enabled() else chunk(*args))
         ce_sum, w_sum, t_sum = (torch.stack(p) for p in zip(*parts))
-        total_w = torch.clamp(torch.sum(w_sum), min=1.0)
-        loss = torch.sum(ce_sum) / total_w
-        batch_center = (torch.sum(t_sum, dim=0) / total_w)[None]
+        sums = collectives.all_reduce_sum(torch.cat([
+            torch.sum(ce_sum)[None], torch.sum(w_sum)[None].detach(),
+            torch.sum(t_sum, dim=0).detach()]))
+        total_w = torch.clamp(sums[1], min=1.0)
+        loss = sums[0] / total_w
+        batch_center = (sums[2:] / total_w)[None]
         new_center = center * center_momentum + batch_center * (
             1 - center_momentum)
         return loss, new_center.detach()

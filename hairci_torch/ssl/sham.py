@@ -38,7 +38,10 @@ online forward on its own 3B/W rows (the BN statistics still cover all 3B,
 rows. The losses and statistics are the global batch's
 (``losses.contrastive``), the gradients are averaged over the ranks before
 the clip (``train.optim.all_reduce_grads_``), and the parameters stay equal
-bit for bit. The ViT and ``s2r2_weight`` are not made global yet.
+bit for bit. On the ViT, which has no BN, the head's BNs and the losses are
+the global parts, and every remat mode runs as without a group; the
+Smooth-AP term ranks each rank's [anchors; positives; negatives] against
+every rank's (``losses.ranking``).
 """
 
 from __future__ import annotations
@@ -239,10 +242,6 @@ class SHAMRecipe:
                       k: int = 7) -> Dict[str, torch.Tensor]:
         """One step on this rank's views; ``draws["perm"]`` is the global
         batch's, ``positive`` and ``mask`` this rank's rows."""
-        if collectives.active() and (self.s2r2_weight > 0
-                                     or self.backbone.startswith("vit")):
-            raise NotImplementedError(
-                "SHAM's data-parallel step covers ResNets without S2R2")
         online, ema = state.online, state.ema
         ema_update(ema, online, self.ema_momentum)  # before the forward
 

@@ -41,6 +41,18 @@ launches none. ``extract_features`` is the online encoder's raw cls token
 The port updates the state in place. ``train_step`` draws every random
 parameter from one CPU generator (``draw``) and hands views, mask and
 relative embeddings to ``step_on_views``, so a test can feed JAX's.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding: ``images`` are this rank's
+rows of the global batch, every rank draws the views' crops, jitters and
+blurs and the mask's scores or noise for the global batch and keeps its
+rows (``shard_sim_draws``), so its boxes and relative position table are
+the one-process run's. The PermuteBNs of both branches (the target's in
+training mode without gradient too) normalise with the global batch's
+statistics (``models.norm``), UniGrad's means and correlation are global
+(``losses.recon``), and the gradients are averaged over the ranks
+(``train.optim.all_reduce_grads_``): parameters and running statistics
+stay equal bit for bit.
 """
 
 from __future__ import annotations
@@ -69,9 +81,14 @@ from hairci_torch.models.vit import (
     flax_init_,
     get_2d_sincos_pos_embed,
 )
+from hairci_torch.parallel import collectives
 from hairci_torch.ssl.base import eval_features, register_recipe
 from hairci_torch.ssl.mae import vit_backbone_name
-from hairci_torch.train.optim import fill_missing_grads_, make_optimizer
+from hairci_torch.train.optim import (
+    all_reduce_grads_,
+    fill_missing_grads_,
+    make_optimizer,
+)
 from hairci_torch.train.schedules import cosine_schedule
 from hairci_torch.train.state import TrainState, ema_update
 
@@ -88,6 +105,16 @@ def draw_sim_views(gen: torch.Generator, B: int, H: int, W: int) -> Dict:
                                              p=0.8) for _ in range(2)],
             "blur": [ops.draw_gaussian_blur(gen, B, (0.1, 2.0), 0.5)
                      for _ in range(2)]}
+
+
+def shard_sim_draws(d: Dict, lo: int, hi: int) -> Dict:
+    """Images ``[lo, hi)`` of ``draw_sim_views``' draws: the crops are
+    (4, B), each jitter's factors and flag and each blur's sigma and flag
+    lead with B; a jitter's one op order for the batch is kept whole."""
+    return {"crops": [c[:, lo:hi] for c in d["crops"]],
+            "jitter": [{k: v if k == "order" else v[lo:hi]
+                        for k, v in j.items()} for j in d["jitter"]],
+            "blur": [tuple(t[lo:hi] for t in bl) for bl in d["blur"]]}
 
 
 def sim_two_view_transform(x: torch.Tensor, d: Dict, size: int = 224
@@ -282,10 +309,14 @@ class SiameseIMRecipe:
     def train_step(self, state: TrainState, images: torch.Tensor,
                    gen: torch.Generator, momentum: float = 0.996
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a uint8 (B, H, W, 3) batch on the training device.
-        Returns the loss as a device tensor."""
-        B, H, W, _ = images.shape
-        draws = self.draw(gen, B, H, W)
+        """One step on a uint8 (b, H, W, 3) batch on the training device
+        (this rank's rows under data parallelism). Returns the loss as a
+        device tensor."""
+        b, H, W, _ = images.shape
+        lo = collectives.rank() * b
+        draws = self.draw(gen, b * collectives.world(), H, W)
+        draws = {k: shard_sim_draws(v, lo, lo + b) if k == "views"
+                 else v[lo:lo + b] for k, v in draws.items()}
         v1, v2, b1, b2 = sim_two_view_transform(images, draws["views"],
                                                 self.img_size)
         rel = relative_pos_embed(b1, b2, self.grid, 2 * self.decoder_dim)
@@ -314,6 +345,7 @@ class SiameseIMRecipe:
                             self.neg_weight, online_ln=self.online_ln)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads_(state.optimizer)
         # the fixed position table and the unused mask token still decay
         fill_missing_grads_(state.optimizer)
         state.optimizer.step()

@@ -22,9 +22,10 @@ Under data parallelism (a process group, ``parallel.collectives``) the step
 is the global batch's, as under JAX's sharding: ``images`` are this rank's
 rows of the global batch, the views' draws are taken for the global batch
 and cut to those rows, the BN statistics cover both views of every rank
-(``models.norm``), NT-Xent's negatives span the global 2B views, and the
-gradients are averaged over the ranks (``train.optim.all_reduce_grads_``).
-The ViT and ``s2r2_weight`` are not made global yet.
+(``models.norm``; on the ViT only the head's), NT-Xent's negatives span
+the global 2B views, the Smooth-AP term ranks each rank's views against
+every rank's (``losses.ranking``), and the gradients are averaged over the
+ranks (``train.optim.all_reduce_grads_``).
 """
 
 from __future__ import annotations
@@ -140,10 +141,6 @@ class SimCLRRecipe:
     def step_on_views(self, state: TrainState, v0: torch.Tensor,
                       v1: torch.Tensor) -> Dict[str, torch.Tensor]:
         online = state.online
-        if collectives.active() and (self.s2r2_weight > 0
-                                     or self.backbone.startswith("vit")):
-            raise NotImplementedError(
-                "SimCLR's data-parallel step covers ResNets without S2R2")
         online.train()
         state.optimizer.zero_grad(set_to_none=True)
         out = online(torch.cat([v0, v1]))

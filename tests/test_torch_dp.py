@@ -429,8 +429,8 @@ def test_cli_checkpoint_restores_across_world_sizes(runs, resumed):
 
 @pytest.mark.parametrize("flags,says", [
     (["--mode", "mae"], "--mode mae has no data-parallel step"),
-    (["--S2R2"], "--S2R2 has no data-parallel step"),
-    (["--model", "vit_b_16"], "--model vit_b_16 has no data-parallel step"),
+    (["--mode", "BYOL"], "--mode BYOL has no data-parallel step"),
+    (["--mode", "MSN"], "--mode MSN has no data-parallel step"),
     (["--batch_size", "15"], "W=2"),
 ])
 def test_cli_refuses_what_is_not_global(dataset, tmp_path, flags, says):
