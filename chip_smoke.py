@@ -284,14 +284,20 @@ Phases, in order; any failure raises and exits non-zero:
                 prototypes, 2 + 8 views; the LayerScale gammas drawn first
                 so that KoLeo is not rounding noise), SiameseIM (ViT-B/16,
                 PermuteBN decoder), SHAM on ViT-B/16 with S2R2 (warmup) and
-                SimCLR with S2R2 (ResNet-50), each without a group and
+                SimCLR with S2R2 (ResNet-50), SupCon (CIFAR-stem
+                ResNet-18), MSN (ViT-B/16, 10 focal views), BYOL and
+                DenseCL (ResNet-50), MAE, SimMIM and SHAM v1 in its
+                reconstruction mode (ViT-B/16), each without a group and
                 through the one-rank group: the same kernel launches (0;
-                16 bn_stats; 1 rotate + 2 bn_stats; 55 bn_stats), the
-                group's collectives called, and the step equal at rtol 1e-5
-                (every metric, gradient, BN statistic, and DINOv2's
-                centres). Then the dry run's tensor-parallel CosFace head
-                (``cli.dryrun_multichip.part_tp``) over the one-rank mesh's
-                ``model`` group, held against the unsharded head.
+                16 bn_stats; 1 rotate + 2 bn_stats; 55 bn_stats; 20; 4;
+                55 bn_stats + 3 conv3x3; 53 + 3; none for the last three),
+                the group's collectives called (the all-gathers exactly
+                DP_RECIPES'), and the step equal at rtol 1e-5 (every
+                metric, gradient, BN statistic, DINOv2's centres and
+                DenseCL's banks and pointers). Then the dry run's
+                tensor-parallel CosFace head (``cli.dryrun_multichip.
+                part_tp``) over the one-rank mesh's ``model`` group, held
+                against the unsharded head.
 The last four lines are the card's name and power limit again, the serving
 numbers of phases 4d and 4e as one JSON object, the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -304,8 +310,9 @@ With ``--ranks N`` (N cards or more) it runs phases 1-2 and then phase 11
 on N cards, one NCCL rank a card (``_dp_rank``): SHAM and SimCLR on
 ResNet-50 at 224, bf16, at the global B=256 split over the N ranks, and on
 one card where it fits, each timed; the same for DINOv2 (B=128, its
-config's), SiameseIM, SHAM on ViT-B/16 with S2R2 and SimCLR with S2R2; the
-ranks' parameters equal after a step; the sharded search over N ranks
+config's), SiameseIM, SHAM on ViT-B/16 with S2R2, SimCLR with S2R2,
+SupCon and MSN (B=128), BYOL, DenseCL, MAE, SimMIM and SHAM v1 (B=256);
+the ranks' parameters equal after a step; the sharded search over N ranks
 against GalleryIndex on one card; then ``python -m
 hairci_torch.cli.dryrun_multichip`` on the N cards and on one. With
 ``--ranks N --profile`` SHAM's and SiameseIM's N-card steps are also
@@ -933,6 +940,17 @@ def _check_bn(x, atol_mean, atol_var) -> float:
                (var - rvar).abs().max().item())
 
 
+def _var_mean_ms(x) -> float:
+    """The card's ms of ``torch.var_mean(x, dim=0, correction=0)``, timed
+    as a kernel: the one PyTorch call that computes the TPU kernel's
+    function (per-channel mean and biased variance,
+    ``tools/bn_stats_bench.py:55-58``) on an f32 (M, C) input; timed here,
+    used nowhere in the port."""
+    import torch
+
+    return _kernel_times(lambda: torch.var_mean(x, dim=0, correction=0))[0]
+
+
 def phase_bn_stats() -> dict:
     import torch
 
@@ -1114,7 +1132,7 @@ def phase_bn_stats() -> dict:
     # launches a step (siameseim_bn_shapes); timed at B=64, checked at the
     # CLI run's B=48
     siam = siameseim_bn_shapes(TRAIN_BATCH)
-    siam_k = siam_h = siam_t = 0.0
+    siam_k = siam_h = siam_t = siam_l = 0.0
     for m, c, n in siam + siameseim_bn_shapes(CLI_BATCH):
         x = torch.randn(m, c, device=dev, generator=gen) * 2 + 1
         err = max(err, _check_bn(x, 1e-4, 1e-3))
@@ -1122,13 +1140,16 @@ def phase_bn_stats() -> dict:
             continue
         kern, host = _kernel_times(lambda: bn_stats(x))
         twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
-        siam_k, siam_h, siam_t = (siam_k + n * kern, siam_h + n * host,
-                                  siam_t + n * twin)
+        lib = _var_mean_ms(x)
+        siam_k, siam_h, siam_t, siam_l = (
+            siam_k + n * kern, siam_h + n * host, siam_t + n * twin,
+            siam_l + n * lib)
         floor = m * c * 4 / HBM_BYTES_PER_S * 1e3
         print(f"bn_stats ({m}, {c}) f32 x{n} per SiameseIM step, "
               f"{blocks(x)}: kernel {kern:.4f} ms on the card (bound "
               f"{floor:.4f}, {100 * floor / kern:.1f} %), {host:.4f} ms on "
-              f"the host; twin {twin:.4f} ms")
+              f"the host; twin {twin:.4f} ms; torch.var_mean {lib:.4f} ms "
+              "on the card")
     values = sum(n * m * c for m, c, n in siam)
     siam_bound = _bound(4 * values + sum(n * 8 * c for _, c, n in siam),
                         3.0 * values, "f32")
@@ -1136,21 +1157,22 @@ def phase_bn_stats() -> dict:
           f"{TRAIN_BATCH}, {4 * values / 1e6:.0f} MB of f32): kernel "
           f"{siam_k:.4f} ms on the card (bound {siam_bound[0]:.4f} by "
           f"{siam_bound[1]}), {siam_h:.4f} ms on the host; twin "
-          f"{siam_t:.4f} ms; at B={CLI_BATCH} too: vs twin and run to run: "
-          f"ok")
+          f"{siam_t:.4f} ms; torch.var_mean {siam_l:.4f} ms on the card; at "
+          f"B={CLI_BATCH} too: vs twin and run to run: ok")
     torch.cuda.empty_cache()
     # DualViewHair's student: the ResNet-50 trunk's 53 train-mode BN inputs
     # and the head's 3 ((32, 256) x 2, (32, 128)) at the CLI's B=32, all
     # f32: 56 launches a step
     dv = resnet50_bn_shapes(DV_BATCH, SIZE) + [(DV_BATCH, 256, 2),
                                                (DV_BATCH, 128, 1)]
-    dv_k = dv_h = dv_t = 0.0
+    dv_k = dv_h = dv_t = dv_l = 0.0
     for m, c, n in dv:
         x = torch.randn(m, c, device=dev, generator=gen) * 2 + 1
         err = max(err, _check_bn(x, 1e-4, 1e-3))
         kern, host = _kernel_times(lambda: bn_stats(x))
         twin = _median_ms(lambda: bn_stats_reference(x), runs=20)
         dv_k, dv_h, dv_t = dv_k + n * kern, dv_h + n * host, dv_t + n * twin
+        dv_l += n * _var_mean_ms(x)
         del x
     count = sum(n for *_, n in dv)
     values = sum(n * m * c for m, c, n in dv)
@@ -1161,11 +1183,13 @@ def phase_bn_stats() -> dict:
           f"{4 * values / 1e9:.2f} GB): kernel {dv_k:.3f} ms on the card "
           f"({100 * dv_bound[0] / dv_k:.1f} % of the bound {dv_bound[0]:.3f} "
           f"ms by {dv_bound[1]}), {dv_h:.3f} ms on the host; twin {dv_t:.3f} "
-          f"ms; vs twin and run to run: ok")
+          f"ms; torch.var_mean {dv_l:.3f} ms on the card; vs twin and run to "
+          f"run: ok")
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "step": (step_k, step_t, step_h),
             "dualview_step": (dv_k, dv_t, dv_h), "dualview_bound": dv_bound,
             "siameseim_step": (siam_k, siam_t, siam_h),
+            "siameseim_library_ms": siam_l, "dualview_library_ms": dv_l,
             "siameseim_bound": siam_bound,
             "msn_step": (msn_k, msn_t, msn_h), "msn_bound": msn_bound,
             "byol_step": (byol_k, byol_t, byol_h), "byol_bound": byol_bound,
@@ -4763,10 +4787,15 @@ def _dp_search(index, queries: dict, g, tag: str, check: bool) -> dict:
 # ResNet steps, each at 224 in f32 for the step held with and without a
 # group: the kernels one step launches (DINOv2 reaches none; SiameseIM its
 # 16 PermuteBNs; SHAM on the ViT one rotation and the head's two BNs;
-# SimCLR the ResNet-50's 55 BNs) and the all-gathers it issues in the
-# forward (SHAM's pos1 views and NT-Xent's pairs, SimCLR's NT-Xent pairs,
-# one more for S2R2's keys, DINOv2's KoLeo rows of its two global views;
-# SiameseIM reduces its UniGrad and BN sums and gathers nothing)
+# SimCLR the ResNet-50's 55 BNs; SupCon the CIFAR-stem ResNet-18's 20; MSN
+# the head's 2 BNs in each of its two passes; BYOL the ResNet-50's 53 and
+# its heads' 2, DenseCL the 53, each with the 3 conv3x3 of its momentum
+# forward; MAE, SimMIM and SHAM v1 none) and the all-gathers it issues
+# (SHAM's pos1 views and NT-Xent's pairs, SimCLR's NT-Xent pairs, one more
+# for S2R2's keys, DINOv2's KoLeo rows of its two global views, SupCon's
+# views and labels, DenseCL's global and local keys for its banks, SHAM
+# v1's NT-Xent pairs; SiameseIM, MSN, BYOL, MAE and SimMIM reduce their
+# sums and gather nothing)
 DP_RECIPES = {
     "dinov2": {"launches": {"bn_stats": 0, "rotate_shear": 0},
                "all_gather": 2},
@@ -4776,7 +4805,23 @@ DP_RECIPES = {
                       "all_gather": 3},
     "simclr_s2r2": {"launches": {"bn_stats": 55, "rotate_shear": 0},
                     "all_gather": 2},
+    "simclr_supcon": {"launches": {"bn_stats": 20, "rotate_shear": 0},
+                      "all_gather": 2},
+    "MSN": {"launches": {"bn_stats": 4, "rotate_shear": 0}, "all_gather": 0},
+    "BYOL": {"launches": {"bn_stats": 55, "rotate_shear": 0, "conv3x3": 3},
+             "all_gather": 0},
+    "DenseCL": {"launches": {"bn_stats": 53, "rotate_shear": 0,
+                             "conv3x3": 3}, "all_gather": 2},
+    "mae": {"launches": {"bn_stats": 0, "rotate_shear": 0}, "all_gather": 0},
+    "simMIM": {"launches": {"bn_stats": 0, "rotate_shear": 0},
+               "all_gather": 0},
+    "SHAM_v1": {"launches": {"bn_stats": 0, "rotate_shear": 0},
+                "all_gather": 1},
 }
+# --ranks N: the global batch of each mode, the config's B=256 but for
+# DINOv2's config's 128 and the 128 of SupCon's and MSN's one-card timings
+# (phases 7e, 7j; SupCon's B=256 does not fit one card)
+DP_RANK_BATCH = {"dinov2": 128, "simclr_supcon": 128, "MSN": 128}
 DP_RECIPE_BATCH = 8      # the f32 steps of DP_RECIPES
 # the modes of --ranks N and the all-gathers one step issues: SHAM's and
 # SimCLR's ResNet-50 steps (SHAM in its warmup stage), then DP_RECIPES
@@ -4800,6 +4845,8 @@ def _dp_recipe(name: str, dtype):
                             **kw)
     if name == "dinov2":
         return build_recipe("dinov2", epochs=1, steps_per_epoch=1, **kw)
+    if name == "SHAM_v1":
+        return build_recipe(name, sham_mode="reconstruction", **kw)
     return build_recipe(name, **kw)
 
 
@@ -4824,12 +4871,20 @@ def _dp_recipe_state(name: str, rec, B: int, dev):
 def _dp_recipe_step(name: str, rec, state, images, seed: int = SEED):
     import torch
 
+    from hairci_torch.parallel import collectives
+
     gen = torch.Generator().manual_seed(seed)
     if name == "dinov2":
         return rec.train_step(state, images, gen, teacher_temp=0.04,
                               momentum=0.992)
-    if name == "siameseim":
+    if name in ("siameseim", "BYOL", "DenseCL"):
         return rec.train_step(state, images, gen, momentum=0.996)
+    if name == "simclr_supcon":
+        # seven classes over the global batch, this rank's rows' labels
+        lo = collectives.rank() * images.shape[0]
+        labels = torch.arange(lo, lo + images.shape[0]) % 7
+        return rec.train_step(state, images, gen,
+                              labels=labels.to(images.device))
     if name in ("SHAM", "SHAM_vit_s2r2"):
         return rec.train_step(state, images, gen, stage="warmup")
     return rec.train_step(state, images, gen)
@@ -4997,8 +5052,8 @@ def phase_dp(workdir: str) -> dict:
           f"{f32_dp['metrics']['loss']:.7f} vs "
           f"{f32_plain['metrics']['loss']:.7f}")
     recipe_launches = _dp_recipes_held(recipes_plain, recipes_dp)
-    print(f"dp: the four recipes' f32 steps, with and without the group, "
-          f"took {t_recipes:.1f} s (host clock, builds included)")
+    print(f"dp: the {len(DP_RECIPES)} recipes' f32 steps, with and without "
+          f"the group, took {t_recipes:.1f} s (host clock, builds included)")
     launches = {name: sum(dp["launches"][s][name] for s in DP_STAGES)
                 + sum(r[name] for r in recipe_launches.values())
                 for name in dp["launches"]["warmup"]}
@@ -5092,7 +5147,7 @@ def _dp_profile(rec, state, step, x) -> dict:
 def _dp_rank(rank: int, n: int, port: int, workdir: str,
              profile: bool = False) -> None:
     """One rank of ``--ranks N``: SHAM and SimCLR (ResNet-50, 224, bf16) and
-    the DP_RECIPES (bf16) at the global B=256 (DINOv2 at its config's 128)
+    the DP_RECIPES (bf16) at the global batch (DP_RANK_BATCH, else 256)
     on N cards (B/N a rank) and on one card (rank 0 alone, through a
     one-rank group, where N x the peak of a rank's step stays below 75
     GiB), each timed; the kernels' launches and the collectives of the
@@ -5123,7 +5178,7 @@ def _dp_rank(rank: int, n: int, port: int, workdir: str,
     one = dist.new_group([0])
     res = {"ranks": n, "global_batch": DP_GLOBAL_BATCH, "card": _card_line()}
     for mode in DP_RANK_GATHERS:
-        B = 128 if mode == "dinov2" else DP_GLOBAL_BATCH
+        B = DP_RANK_BATCH.get(mode, DP_GLOBAL_BATCH)
         b = B // n
         mine = images[rank * b:(rank + 1) * b].to(dev)
         rec = _dp_recipe(mode, torch.bfloat16)
@@ -5358,8 +5413,10 @@ def main() -> int:
     # the batch the kNN CLI ran it with (its launches are that run's), bf16,
     # weights packed by the caller as Conv2d does. No single PyTorch call
     # computes the first three (matmul + sort is two, grid_sample is no
-    # 3-shear, and var_mean gives other statistics), so their library_ms is
-    # null. launches_vit: the same kernel's launches in the ViT SHAM training
+    # 3-shear, and var_mean of a bf16 input rounds its statistics to bf16),
+    # so their library_ms is null; bn_stats' f32 sets (siameseim_*,
+    # dualview_*) carry torch.var_mean's time as their library_ms.
+    # launches_vit: the same kernel's launches in the ViT SHAM training
     # run (phase 7b); bn_stats' vit_* numbers are the ViT head's two BN
     # inputs summed. launches_simclr / launches_supcon: bn_stats' launches in
     # the SimCLR and SupCon training runs (phases 7d, 7e), conv3x3's in the
@@ -5471,11 +5528,13 @@ def main() -> int:
          "siameseim_host_ms": bn["siameseim_step"][2],
          "siameseim_plain_ms": bn["siameseim_step"][1],
          "siameseim_bound_ms": bn["siameseim_bound"][0],
+         "siameseim_library_ms": bn["siameseim_library_ms"],
          "dualview_ms": bn["dualview_step"][0],
          "dualview_host_ms": bn["dualview_step"][2],
          "dualview_plain_ms": bn["dualview_step"][1],
          "dualview_bound_ms": bn["dualview_bound"][0],
-         "dualview_bound_by": bn["dualview_bound"][1]},
+         "dualview_bound_by": bn["dualview_bound"][1],
+         "dualview_library_ms": bn["dualview_library_ms"]},
         {"name": "conv3x3", "route": "cuda",
          "source": "hairci_torch/ops/csrc/conv3x3.cu",
          "replaces": "tools/fused_conv_bn_bench.py:47",
@@ -5519,9 +5578,8 @@ def main() -> int:
             row[f"launches_{mode.lower()}"] = (run["launches"][key]
                                                + run["knn_launches"][key])
         # phase 11: the SHAM steps (warmup, mine, mined), the f32 steps of
-        # DINOv2, SiameseIM, SHAM on the ViT with S2R2 and SimCLR with S2R2
-        # (launches_dp_recipes, each), and the sharded searches (Q = 1:
-        # fma, Q = 256: mma), all through a one-rank group
+        # DP_RECIPES (launches_dp_recipes, each), and the sharded searches
+        # (Q = 1: fma, Q = 256: mma), all through a one-rank group
         if key == "topk_gallery_search":
             route = "mma" if row["name"].endswith("batched") else "fma"
             row["launches_dp"] = sum(r["routes"][route]

@@ -31,14 +31,11 @@ rendezvous at ``--coordinator`` (NCCL on cards; rank i takes card
 model)`` mesh of ``--num_processes / --n_model_shards`` by
 ``--n_model_shards`` ranks. ``--batch_size`` is the global batch: each rank
 decodes and trains on its rows of the batch the one-process run sees, and
-the step is that run's (``ssl.sham``, ``ssl.simclr``, ``ssl.dinov2``,
-``ssl.siameseim``). The batch is split over ``data`` only, as in JAX. A
-batch the ``data`` axis does not divide is refused: JAX shrinks the axis to
-``gcd(batch, devices)`` instead, but a process that owns a card cannot sit
-idle without changing the result. SHAM, simclr and S2R2 (on a ResNet or
-the ViT, with or without ``--S2R2``), dinov2 and siameseim have a
-global-batch step; every other mode exits under ``--num_processes`` > 1,
-naming the gap, rather than train W independent runs.
+the step of every mode is that run's (each recipe in ``ssl/`` says how).
+The batch is split over ``data`` only, as in JAX. A batch the ``data`` axis
+does not divide is refused: JAX shrinks the axis to ``gcd(batch,
+devices)`` instead, but a process that owns a card cannot sit idle without
+changing the result.
 """
 
 from __future__ import annotations
@@ -56,30 +53,20 @@ from hairci_torch.utils.config import parse_pretrain_args
 from hairci_torch.utils.device import resolve_device
 from hairci_torch.utils.seeding import set_seed
 
-__all__ = ["DATA_PARALLEL_MODES", "PORTED_MODES", "build_recipe_from_args",
-           "check_data_parallel", "main", "set_seed"]
+__all__ = ["PORTED_MODES", "build_recipe_from_args", "check_data_parallel",
+           "main", "set_seed"]
 
 PORTED_MODES = ("SHAM", "simclr", "S2R2", "simclr_supcon", "mae", "simMIM",
                 "dinov2", "MSN", "BYOL", "DenseCL", "siameseim")
-# the modes whose step is the global batch's under several processes
-DATA_PARALLEL_MODES = ("SHAM", "simclr", "S2R2", "dinov2", "siameseim")
-_DP_GAP = ("(ROADMAP.md, queue 1: the data-parallel steps of SupCon, MSN, "
-           "BYOL, DenseCL, MAE, SimMIM and SHAM v1)")
 
 
 def check_data_parallel(args) -> None:
-    """Exit, naming the gap, when several processes were asked for a run
-    whose step is not yet the global batch's, or for a batch the ``data``
-    axis does not divide; run before the rendezvous."""
+    """Exit when several processes were asked for a mesh or a batch the
+    ranks cannot split; run before the rendezvous."""
     n = args.num_processes or 1
     if n <= 1:
         return
     where = f"--num_processes {n}"
-    if args.mode not in DATA_PARALLEL_MODES:
-        raise SystemExit(
-            f"{where}: --mode {args.mode} has no data-parallel step yet; "
-            f"only {', '.join(DATA_PARALLEL_MODES)} train on several "
-            f"processes {_DP_GAP}")
     if n % args.n_model_shards:
         raise SystemExit(f"{where} does not divide by --n_model_shards "
                          f"{args.n_model_shards}")

@@ -6,11 +6,12 @@ logs and adapts k from; and the reference's losses no recipe calls: NT-Xent
 with one anchor and two positives, the cosine-distance margin losses (one-
 and two-sided) and the MSE of normalised embeddings.
 
-Under data parallelism (``parallel.collectives``) NT-Xent, the triplet loss
-and the margin statistics are the global batch's, as under JAX's sharding:
-NT-Xent gathers both views from every rank, so its negatives span the
-global 2B views, and the triplet loss and the statistics are means (the
-violations a sum) over the global batch."""
+Under data parallelism (``parallel.collectives``) NT-Xent, the triplet loss,
+the margin statistics and SupCon are the global batch's, as under JAX's
+sharding: NT-Xent gathers both views from every rank, so its negatives
+span the global 2B views; SupCon gathers the views and the labels, so its
+positives and negatives span them too; the triplet loss and the
+statistics are means (the violations a sum) over the global batch."""
 
 from __future__ import annotations
 
@@ -64,33 +65,43 @@ def supcon_loss(features: torch.Tensor,
                 contrast_mode: str = "all") -> torch.Tensor:
     """Supervised contrastive loss (Khosla et al.) on (B, n_views, D)
     L2-normalised features. ``labels`` (B,) marks the positives; ``None``
-    keeps only the other views of the same sample (the SimCLR case)."""
-    B, V, _ = features.shape
+    keeps only the other views of the same sample (the SimCLR case).
+
+    Under data parallelism ``features`` and ``labels`` are this rank's rows
+    of the global batch: both are gathered from every rank, this rank's
+    anchors are contrasted with all the global batch's views (their
+    positives from the global labels, the self-mask at each anchor's global
+    row), and the loss is the mean over every rank's anchors."""
+    b, V, _ = features.shape
+    # without a process group the same steps (and no collective), so that
+    # autograd sums the gradients in the same order with a one-rank group
+    every = collectives.all_gather(features)               # (B, V, D)
+    B = every.shape[0]
     # view-major rows: [view 0 of every sample, view 1 of every sample, ...]
-    feats = torch.cat(torch.unbind(features, dim=1), dim=0)
+    feats = torch.cat(torch.unbind(every, dim=1), dim=0)
     if labels is None:
-        mask = torch.eye(B, dtype=torch.float32, device=features.device)
+        labels = torch.arange(B, device=features.device)
     else:
-        labels = labels.reshape(B, 1)
-        mask = (labels == labels.T).float()
-    if contrast_mode == "one":
-        anchor, anchor_count = features[:, 0], 1
-    elif contrast_mode == "all":
-        anchor, anchor_count = feats, V
-    else:
+        labels = collectives.all_gather(labels.reshape(b))
+    if contrast_mode not in ("one", "all"):
         raise ValueError(contrast_mode)
+    own = collectives.rank() * b + torch.arange(b, device=features.device)
+    # this rank's anchors: view 0 of its samples ("one"), or every view
+    rows = torch.cat([own + v * B for v in range(
+        1 if contrast_mode == "one" else V)])
+    anchor = feats[rows]
     logits = (anchor.float() @ feats.float().T) / temperature
     logits = logits - logits.max(dim=1, keepdim=True).values.detach()
-    mask = mask.repeat(anchor_count, V)
-    n_anchor = anchor.shape[0]
-    logits_mask = 1.0 - torch.eye(B * V, dtype=torch.float32,
-                                  device=features.device)[:n_anchor]
+    sample = labels.repeat(V)                       # each row's sample label
+    mask = (sample[rows][:, None] == sample[None, :]).float()
+    logits_mask = 1.0 - F.one_hot(rows, B * V).float()
     mask = mask * logits_mask
     exp_logits = torch.exp(logits) * logits_mask
     log_prob = logits - torch.log(exp_logits.sum(1, keepdim=True) + 1e-12)
     mask_sum = torch.clamp(mask.sum(1), min=1e-12)
     mean_log_prob_pos = (mask * log_prob).sum(1) / mask_sum
-    return (-(temperature / base_temperature) * mean_log_prob_pos).mean()
+    return collectives.global_mean(
+        -(temperature / base_temperature) * mean_log_prob_pos)
 
 
 def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,

@@ -11,6 +11,13 @@
 
 Every similarity is an f32 product, as ``preferred_element_type=f32`` makes
 it in JAX. ``_normalize`` maps a zero row to zero (a fresh bank is zeros).
+
+Under data parallelism (``parallel.collectives``) the losses the recipes
+call are the global batch's, as under JAX's sharding:
+``patch_contrastive_loss`` (SHAM v1) stays per sample and its mean is
+global; ``memory_bank_infonce`` (DenseCL) is a global mean against the
+bank, which every rank holds whole and writes with every rank's keys
+(``ssl.densecl``). ``dense_loss``, which no recipe calls, is per rank.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from hairci_torch.parallel import collectives
 
 
 def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -58,7 +67,8 @@ def patch_contrastive_loss(patch_s: torch.Tensor, patch_t: torch.Tensor,
     sim = sim.masked_fill(eye, float("-inf"))
     pos = (torch.arange(2 * N, device=sim.device) + N) % (2 * N)
     logprob = torch.log_softmax(sim, dim=2)
-    return -logprob[:, torch.arange(2 * N, device=sim.device), pos].mean()
+    return -collectives.global_mean(
+        logprob[:, torch.arange(2 * N, device=sim.device), pos])
 
 
 def memory_bank_infonce(query: torch.Tensor, key: torch.Tensor,
@@ -71,7 +81,8 @@ def memory_bank_infonce(query: torch.Tensor, key: torch.Tensor,
     b = _normalize(bank.detach().float())
     pos = torch.sum(q * k, dim=-1, keepdim=True)
     neg = q @ b.T
-    return _first_column_ce(torch.cat([pos, neg], dim=1) / temperature)
+    logits = torch.cat([pos, neg], dim=1) / temperature
+    return -collectives.global_mean(torch.log_softmax(logits, dim=1)[:, 0])
 
 
 def update_memory_bank(bank: torch.Tensor, ptr, keys: torch.Tensor

@@ -11,8 +11,10 @@ Under data parallelism (``parallel.collectives``) DINO's and KoLeo's batch
 quantities are the global batch's, as under JAX's sharding: DINO's
 cross-entropy terms and its centre are global means (the centre comes out
 bitwise equal on every rank), and KoLeo takes each rank's rows' nearest
-neighbours among every rank's rows. The iBOT loss of the DINOv2 step is
-global in ``ssl.dinov2``; the others here are per-rank functions.
+neighbours among every rank's rows; BYOL's negative cosine is a global
+mean; MSN's Sinkhorn sums over every rank's targets, and its cross-entropy
+and mean probabilities are global means. The iBOT loss of the DINOv2 step
+is global in ``ssl.dinov2``; the others here are per-rank functions.
 """
 
 from __future__ import annotations
@@ -34,9 +36,9 @@ def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 def negative_cosine_similarity(p: torch.Tensor,
                                z: torch.Tensor) -> torch.Tensor:
     """BYOL / SimSiam: -cos(p, z) with no gradient through ``z``, mean over
-    the batch."""
-    return -torch.mean(torch.sum(_normalize(p) * _normalize(z.detach()),
-                                 dim=-1))
+    the batch (every rank's rows under data parallelism)."""
+    return -collectives.global_mean(torch.sum(
+        _normalize(p) * _normalize(z.detach()), dim=-1))
 
 
 def distillation_loss(z_student: torch.Tensor, z_teacher: torch.Tensor,
@@ -138,7 +140,10 @@ def msn_loss(anchors: torch.Tensor, targets: torch.Tensor,
     """lightly ``MSNLoss``: cross-entropy of the anchors' prototype
     probabilities against the Sinkhorn-balanced target probabilities (no
     gradient through ``targets``), plus the mean-entropy maximisation term.
-    ``anchors`` holds A = T * views rows, view-major."""
+    ``anchors`` holds A = T * views rows, view-major. Under data
+    parallelism both are this rank's rows: Sinkhorn balances the global
+    batch's targets, and the cross-entropy and the anchors' mean
+    probabilities are means over every rank's anchors."""
     a = _normalize(anchors)
     t = _normalize(targets.detach())
     p = _normalize(prototypes)
@@ -148,8 +153,9 @@ def msn_loss(anchors: torch.Tensor, targets: torch.Tensor,
                             / temperature, dim=-1)
     t_probs = _sinkhorn(t_probs, sinkhorn_iterations)
     t_probs = t_probs.repeat(anchors.shape[0] // targets.shape[0], 1)
-    ce = -torch.mean(torch.sum(t_probs * torch.log(a_probs + 1e-12), dim=-1))
-    mean_probs = torch.mean(a_probs, dim=0)
+    ce = -collectives.global_mean(torch.sum(
+        t_probs * torch.log(a_probs + 1e-12), dim=-1))
+    mean_probs = collectives.all_reduce_mean(torch.mean(a_probs, dim=0))
     me_max = torch.sum(mean_probs * torch.log(mean_probs + 1e-12)) \
         + math.log(a_probs.shape[1])
     return ce + me_max_weight * me_max
@@ -158,13 +164,18 @@ def msn_loss(anchors: torch.Tensor, targets: torch.Tensor,
 def _sinkhorn(probs: torch.Tensor, iterations: int) -> torch.Tensor:
     """Sinkhorn-Knopp over (rows = samples, cols = prototypes): ``iterations``
     row and column normalisations of the transposed matrix (the JAX
-    package's ``lax.scan``), without a gradient."""
+    package's ``lax.scan``), without a gradient. Under data parallelism
+    ``probs`` is this rank's samples: the total and each prototype's sum
+    over the samples are summed over the ranks, and T is the global sample
+    count."""
     if iterations == 0:
         return probs
     q = probs.detach().T
-    q = q / torch.sum(q)
-    K, T = q.shape
+    q = q / collectives.all_reduce_sum(torch.sum(q))
+    K = q.shape[0]
+    T = q.shape[1] * collectives.world()
     for _ in range(iterations):
-        q = q / torch.clamp(torch.sum(q, dim=1, keepdim=True), min=1e-12) / K
+        q = q / torch.clamp(collectives.all_reduce_sum(
+            torch.sum(q, dim=1, keepdim=True)), min=1e-12) / K
         q = q / torch.clamp(torch.sum(q, dim=0, keepdim=True), min=1e-12) / T
     return (q * T).T

@@ -13,7 +13,8 @@ as the JAX package flattens them. Variances are population variances.
 Under data parallelism (``parallel.collectives``) UniGrad is the global
 batch's, as under JAX's sharding: its means are global and the targets'
 correlation is the sum of every rank's ``targetᵀ target`` over the global
-row count. MAE's and SimMIM's losses here are per-rank functions.
+row count; MAE's MSE and SimMIM's L1 are sums over every rank's masked
+patches over the global mask count (``norm_pix`` stays per patch).
 """
 
 from __future__ import annotations
@@ -45,10 +46,14 @@ def unpatchify(patches: torch.Tensor, patch_size: int,
 
 def _masked_mean(err: torch.Tensor,
                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The mean of ``err`` over the masked patches of every rank: the sum
+    of the errors and the mask count, each summed over the ranks, divided
+    (the plain mean over every rank's rows without a mask)."""
     if mask is None:
-        return err.mean()
+        return collectives.global_mean(err)
     m = mask.to(err.dtype)
-    return (err * m).sum() / torch.clamp(m.sum(), min=1.0)
+    tot = collectives.all_reduce_sum(torch.stack([(err * m).sum(), m.sum()]))
+    return tot[0] / torch.clamp(tot[1].detach(), min=1.0)
 
 
 def masked_mse_loss(pred: torch.Tensor, target: torch.Tensor,

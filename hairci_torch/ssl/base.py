@@ -14,7 +14,9 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from hairci_torch.aug.pipelines import shard_draws
 from hairci_torch.models.vit import VisionTransformer
+from hairci_torch.parallel import collectives
 
 
 def backbone_features(backbone: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -36,6 +38,20 @@ def eval_features(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
         return module.extract_features(x)
     finally:
         module.train(was_training)
+
+
+def rank_draws(draw, gen: torch.Generator,
+               images: torch.Tensor) -> Dict[str, Any]:
+    """A recipe's ``draw(gen, B, H, W)`` for the global batch, B = W b where
+    ``images`` holds this rank's b rows, cut to this rank's rows ``[r b,
+    (r+1) b)``: each view's draws by ``shard_draws``, every other draw (a
+    token mask's noise) by its leading rows. Without a process group, the
+    draws of ``images``."""
+    b, H, W, _ = images.shape
+    lo = collectives.rank() * b
+    d = draw(gen, b * collectives.world(), H, W)
+    return {k: [shard_draws(v, lo, lo + b) for v in x] if k == "views"
+            else x[lo:lo + b] for k, x in d.items()}
 
 
 RECIPES: Dict[str, Any] = {}

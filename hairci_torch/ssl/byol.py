@@ -25,6 +25,17 @@ view in eval mode. Weights are f32, computed in ``dtype``.
 The port updates the state in place. ``train_step`` draws the views'
 random parameters from one CPU generator (``draw``) and hands the views to
 ``step_on_views``, so a test can feed JAX's.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding: ``images`` are this rank's
+rows of the global batch, the views' draws are taken for the global batch
+and cut to those rows, the online trunk's and heads' BN statistics cover
+both views of every rank (``models.norm``), the loss is a mean over every
+rank's rows (``losses.distill.negative_cosine_similarity``), and the
+gradients are averaged over the ranks (``train.optim.all_reduce_grads_``),
+so that the online branch, its statistics and the momentum branch stay
+equal bit for bit on every rank. The momentum branch runs in eval mode and
+reduces nothing.
 """
 
 from __future__ import annotations
@@ -50,9 +61,14 @@ from hairci_torch.models.heads import (
 from hairci_torch.ssl.base import (
     backbone_features,
     eval_features,
+    rank_draws,
     register_recipe,
 )
-from hairci_torch.train.optim import fill_missing_grads_, make_optimizer
+from hairci_torch.train.optim import (
+    all_reduce_grads_,
+    fill_missing_grads_,
+    make_optimizer,
+)
 from hairci_torch.train.schedules import cosine_schedule
 from hairci_torch.train.state import TrainState, ema_update
 
@@ -132,10 +148,11 @@ class BYOLRecipe:
     def train_step(self, state: TrainState, images: torch.Tensor,
                    gen: torch.Generator, momentum: float = 0.996
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a uint8 (B, H, W, 3) batch on the training device.
-        Returns the loss as a device tensor."""
-        B, H, W, _ = images.shape
-        v0, v1 = self.transform.apply(images, self.draw(gen, B, H, W)["views"])
+        """One step on a uint8 (b, H, W, 3) batch on the training device
+        (this rank's rows under data parallelism). Returns the loss as a
+        device tensor."""
+        v0, v1 = self.transform.apply(
+            images, rank_draws(self.draw, gen, images)["views"])
         return self.step_on_views(state, v0, v1, momentum)
 
     def step_on_views(self, state: TrainState, v0: torch.Tensor,
@@ -154,6 +171,7 @@ class BYOLRecipe:
                       + negative_cosine_similarity(p1, z0))
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads_(state.optimizer)
         # a ViT's fixed position table and unused mask token still decay
         fill_missing_grads_(state.optimizer)
         state.optimizer.step()

@@ -32,6 +32,18 @@ rounded to ``dtype``) of the kNN view in eval mode.
 The port updates the state in place. ``train_step`` draws the views'
 random parameters from one CPU generator (``draw``) and hands the views to
 ``step_on_views``, so a test can feed JAX's.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding: ``images`` are this rank's
+rows of the global batch, the views' draws are taken for the global batch
+and cut to those rows, the online trunk's and heads' BN statistics cover
+every rank's query views (``models.norm``), both InfoNCE terms are means
+over every rank's queries (``losses.dense.memory_bank_infonce``; each
+query position is matched within its own image), and the gradients are
+averaged over the ranks (``train.optim.all_reduce_grads_``). Every rank
+holds both banks whole and enqueues every rank's keys, gathered in rank
+order, so that the pointers advance by the global batch and the banks stay
+equal bit for bit on every rank, and to the one-process run's.
 """
 
 from __future__ import annotations
@@ -54,8 +66,13 @@ from hairci_torch.losses.dense import (
 )
 from hairci_torch.models.heads import DenseCLLocalHead, densecl_global_head
 from hairci_torch.models.resnet import build_resnet
-from hairci_torch.ssl.base import eval_features, register_recipe
-from hairci_torch.train.optim import make_optimizer
+from hairci_torch.parallel import collectives
+from hairci_torch.ssl.base import (
+    eval_features,
+    rank_draws,
+    register_recipe,
+)
+from hairci_torch.train.optim import all_reduce_grads_, make_optimizer
 from hairci_torch.train.schedules import cosine_schedule
 from hairci_torch.train.state import TrainState, ema_update
 
@@ -149,11 +166,11 @@ class DenseCLRecipe:
     def train_step(self, state: TrainState, images: torch.Tensor,
                    gen: torch.Generator, momentum: float = 0.996
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a uint8 (B, H, W, 3) batch on the training device.
-        Returns the loss and its two terms as device tensors."""
-        B, H, W, _ = images.shape
+        """One step on a uint8 (b, H, W, 3) batch on the training device
+        (this rank's rows under data parallelism). Returns the loss and its
+        two terms as device tensors."""
         x_query, x_key = self.transform.apply(
-            images, self.draw(gen, B, H, W)["views"])
+            images, rank_draws(self.draw, gen, images)["views"])
         return self.step_on_views(state, x_query, x_key, momentum)
 
     def step_on_views(self, state: TrainState, x_query: torch.Tensor,
@@ -178,13 +195,17 @@ class DenseCLRecipe:
         loss = (1 - self.lambda_) * loss_g + self.lambda_ * loss_l
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads_(state.optimizer)
         state.optimizer.step()
         state.step += 1
-        # enqueue this batch's keys, the local ones as a mean per image
-        bank_g, ptr_g = update_memory_bank(extra["bank_g"], extra["ptr_g"],
-                                           key_global)
-        bank_l, ptr_l = update_memory_bank(extra["bank_l"], extra["ptr_l"],
-                                           key_local.mean(dim=1))
+        # enqueue the global batch's keys, the local ones as a mean per
+        # image, every rank's in rank order
+        bank_g, ptr_g = update_memory_bank(
+            extra["bank_g"], extra["ptr_g"],
+            collectives.all_gather(key_global))
+        bank_l, ptr_l = update_memory_bank(
+            extra["bank_l"], extra["ptr_l"],
+            collectives.all_gather(key_local.mean(dim=1)))
         state.extra = {"bank_g": bank_g, "ptr_g": ptr_g,
                        "bank_l": bank_l, "ptr_l": ptr_l}
         return {"loss": loss.detach(), "global_loss": loss_g.detach(),

@@ -17,6 +17,14 @@ f32, computed in ``dtype``.
 The port updates the state in place. ``train_step`` draws the view's
 parameters and the mask's noise from one CPU generator (``draw``) and hands
 the view and mask to ``step_on_view``, so a test can feed JAX's.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding: ``images`` are this rank's
+rows of the global batch, the view's draws and the mask's noise are taken
+for the global batch and cut to those rows, the loss is the sum of every
+rank's masked-patch errors over the global mask count
+(``losses.recon``), and the gradients are averaged over the ranks
+(``train.optim.all_reduce_grads_``).
 """
 
 from __future__ import annotations
@@ -46,8 +54,16 @@ from hairci_torch.models.vit import (
     flax_init_,
     get_2d_sincos_pos_embed,
 )
-from hairci_torch.ssl.base import eval_features, register_recipe
-from hairci_torch.train.optim import fill_missing_grads_, make_optimizer
+from hairci_torch.ssl.base import (
+    eval_features,
+    rank_draws,
+    register_recipe,
+)
+from hairci_torch.train.optim import (
+    all_reduce_grads_,
+    fill_missing_grads_,
+    make_optimizer,
+)
 from hairci_torch.train.state import TrainState
 
 # lightly MAEDecoderTIMM's defaults
@@ -173,9 +189,9 @@ class MAERecipe:
                    labels: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         """One step on a uint8 (B, H, W, 3) batch on the training device
-        (``labels`` unused). Returns the loss as a device tensor."""
-        B, H, W, _ = images.shape
-        draws = self.draw(gen, B, H, W)
+        (this rank's rows under data parallelism; ``labels`` unused).
+        Returns the loss as a device tensor."""
+        draws = rank_draws(self.draw, gen, images)
         (view,) = self.transform.apply(images, draws["views"])
         ids_keep, ids_restore, mask = random_token_mask_from_noise(
             to_device(draws["noise"], view.device), self.mask_ratio)
@@ -191,6 +207,7 @@ class MAERecipe:
         loss = masked_mse_loss(pred, patchify(view, self.patch_size), mask,
                                norm_pix=self.norm_pix)
         loss.backward()
+        all_reduce_grads_(state.optimizer)
         # the encoder's fixed position table and unused mask token decay
         fill_missing_grads_(state.optimizer)
         state.optimizer.step()

@@ -24,6 +24,17 @@ uses the frozen target backbone). Weights are f32, computed in ``dtype``.
 The port updates the state in place. ``train_step`` draws every random
 parameter from one CPU generator (``draw``) and hands views and mask to
 ``step_on_views``, so a test can feed JAX's.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding: ``images`` are this rank's
+rows of the global batch, the views' draws and the anchor mask's noise are
+taken for the global batch and cut to those rows, each of the head's two
+BN passes (anchors, then focal views) takes the statistics of every rank's
+rows of that pass (``models.norm``), Sinkhorn balances the global batch's
+targets and the cross-entropy and the me-max term's mean probabilities are
+global means (``losses.distill.msn_loss``), and the gradients are averaged
+over the ranks (``train.optim.all_reduce_grads_``), so that both branches
+and their statistics stay equal bit for bit on every rank.
 """
 
 from __future__ import annotations
@@ -47,9 +58,17 @@ from hairci_torch.models.masking import (
     random_token_mask_from_noise,
 )
 from hairci_torch.models.vit import VIT_CONFIGS, build_vit
-from hairci_torch.ssl.base import eval_features, register_recipe
+from hairci_torch.ssl.base import (
+    eval_features,
+    rank_draws,
+    register_recipe,
+)
 from hairci_torch.ssl.mae import vit_backbone_name
-from hairci_torch.train.optim import fill_missing_grads_, make_optimizer
+from hairci_torch.train.optim import (
+    all_reduce_grads_,
+    fill_missing_grads_,
+    make_optimizer,
+)
 from hairci_torch.train.state import TrainState, ema_update
 
 
@@ -133,9 +152,9 @@ class MSNRecipe:
                    labels: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         """One step on a uint8 (B, H, W, 3) batch on the training device
-        (``labels`` unused). Returns the loss as a device tensor."""
-        B, H, W, _ = images.shape
-        draws = self.draw(gen, B, H, W)
+        (this rank's rows under data parallelism; ``labels`` unused).
+        Returns the loss as a device tensor."""
+        draws = rank_draws(self.draw, gen, images)
         views = self.transform.apply(images, draws["views"])
         ids_keep, _, _ = random_token_mask_from_noise(
             to_device(draws["noise"], images.device), self.mask_ratio)
@@ -157,6 +176,7 @@ class MSNRecipe:
                         target_out, online.prototypes)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads_(state.optimizer)
         # the fixed position table and the unused mask token still decay
         fill_missing_grads_(state.optimizer)
         state.optimizer.step()

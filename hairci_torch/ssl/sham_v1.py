@@ -36,6 +36,17 @@ f32, computed in ``dtype``.
 The port updates the state in place. ``train_step`` draws the views' and
 the mask's random parameters from one CPU generator (``draw``) and hands
 them to ``step_on_views``, so a test can feed JAX's.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding: ``images`` are this rank's
+rows of the global batch, the views' draws and the mask's noise are taken
+for the global batch and cut to those rows, NT-Xent's negatives span every
+rank's views (``losses.contrastive``), the patch-contrastive loss stays
+per sample with a global mean (``losses.dense``), the reconstruction is
+the sum of every rank's masked-patch errors over the global mask count
+(``losses.recon``), and the gradients are averaged over the ranks before
+the clip (``train.optim.all_reduce_grads_``), so that the student and the
+teacher stay equal bit for bit on every rank.
 """
 
 from __future__ import annotations
@@ -69,9 +80,14 @@ from hairci_torch.models.vit import (
     build_vit,
     flax_init_,
 )
-from hairci_torch.ssl.base import eval_features, register_recipe
+from hairci_torch.ssl.base import (
+    eval_features,
+    rank_draws,
+    register_recipe,
+)
 from hairci_torch.ssl.mae import vit_backbone_name
 from hairci_torch.train.optim import (
+    all_reduce_grads_,
     clip_grad_global_norm_,
     fill_missing_grads_,
     make_optimizer,
@@ -217,9 +233,9 @@ class SHAMv1Recipe:
                    labels: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         """One step on a uint8 (B, H, W, 3) batch on the training device
-        (``labels`` unused). Returns the metrics as device tensors."""
-        B, H, W, _ = images.shape
-        draws = self.draw(gen, B, H, W)
+        (this rank's rows under data parallelism; ``labels`` unused).
+        Returns the metrics as device tensors."""
+        draws = rank_draws(self.draw, gen, images)
         v_student, v_teacher = self.transform.apply(images, draws["views"])
         mask = random_token_mask_from_noise(
             to_device(draws["noise"], images.device), self.mask_ratio)
@@ -261,6 +277,7 @@ class SHAMv1Recipe:
         total = g_loss + self.local_weight * l_loss + self.recon_weight * recon
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        all_reduce_grads_(state.optimizer)
         # parameters without a gradient (the fixed position table, the
         # unused mask tokens, the decoder in embedding mode) as under optax
         fill_missing_grads_(state.optimizer)

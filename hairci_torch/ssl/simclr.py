@@ -38,7 +38,6 @@ from torch import nn
 from hairci_torch.aug.pipelines import (
     MultiViewTransform,
     knn_transform,
-    shard_draws,
     simclr_transform,
 )
 from hairci_torch.losses.contrastive import nt_xent_loss
@@ -46,10 +45,10 @@ from hairci_torch.losses.ranking import s2r2_loss
 from hairci_torch.models.heads import SIMCLR_PROJ_DIMS, simclr_projection_head
 from hairci_torch.models.resnet import build_resnet
 from hairci_torch.models.vit import build_vit
-from hairci_torch.parallel import collectives
 from hairci_torch.ssl.base import (
     backbone_features,
     eval_features,
+    rank_draws,
     register_recipe,
 )
 from hairci_torch.train.optim import (
@@ -131,11 +130,8 @@ class SimCLRRecipe:
         """One step on a uint8 (B, H, W, 3) batch on the training device
         (this rank's rows under data parallelism; ``labels`` unused).
         Returns the loss as a device tensor."""
-        b, H, W, _ = images.shape
-        lo = collectives.rank() * b
-        views = self.draw(gen, b * collectives.world(), H, W)["views"]
         v0, v1 = self.transform.apply(
-            images, [shard_draws(v, lo, lo + b) for v in views])
+            images, rank_draws(self.draw, gen, images)["views"])
         return self.step_on_views(state, v0, v1)
 
     def step_on_views(self, state: TrainState, v0: torch.Tensor,

@@ -13,6 +13,14 @@ The ViT is ``vit_base_patch16`` whatever backbone is asked for (a ResNet
 name, or ``vit_b_16``, which the JAX package's ``VIT_CONFIGS`` lacks).
 Weights are f32, computed in ``dtype``. ``train_step`` draws from one CPU
 generator (``draw``) and hands the view and mask to ``step_on_view``.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding: ``images`` are this rank's
+rows of the global batch, the view's draws and the mask's noise are taken
+for the global batch and cut to those rows, the loss is the sum of every
+rank's masked-patch errors over the global mask count
+(``losses.recon``), and the gradients are averaged over the ranks
+(``train.optim.all_reduce_grads_``).
 """
 
 from __future__ import annotations
@@ -42,9 +50,17 @@ from hairci_torch.models.vit import (
     flax_init_,
     get_2d_sincos_pos_embed,
 )
-from hairci_torch.ssl.base import eval_features, register_recipe
+from hairci_torch.ssl.base import (
+    eval_features,
+    rank_draws,
+    register_recipe,
+)
 from hairci_torch.ssl.mae import vit_backbone_name
-from hairci_torch.train.optim import fill_missing_grads_, make_optimizer
+from hairci_torch.train.optim import (
+    all_reduce_grads_,
+    fill_missing_grads_,
+    make_optimizer,
+)
 from hairci_torch.train.state import TrainState
 
 
@@ -136,9 +152,9 @@ class SimMIMRecipe:
                    labels: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         """One step on a uint8 (B, H, W, 3) batch on the training device
-        (``labels`` unused). Returns the loss as a device tensor."""
-        B, H, W, _ = images.shape
-        draws = self.draw(gen, B, H, W)
+        (this rank's rows under data parallelism; ``labels`` unused).
+        Returns the loss as a device tensor."""
+        draws = rank_draws(self.draw, gen, images)
         (view,) = self.transform.apply(images, draws["views"])
         _, _, maskf = random_token_mask_from_noise(
             to_device(draws["noise"], view.device), self.mask_ratio)
@@ -152,6 +168,7 @@ class SimMIMRecipe:
         pred = online(view, mask)
         loss = masked_l1_loss(pred, patchify(view, self.patch_size), mask)
         loss.backward()
+        all_reduce_grads_(state.optimizer)
         fill_missing_grads_(state.optimizer)
         state.optimizer.step()
         state.step += 1

@@ -10,6 +10,15 @@ concatenated (BN statistics over the 2B rows), the features stacked as
 (B, 2, D), ``supcon_loss`` at ``temperature`` with the labels, Adam(W)
 with no gradient clipping. ``extract_features`` is the encoder alone, in
 eval mode, on the kNN view.
+
+Under data parallelism (a process group, ``parallel.collectives``) the step
+is the global batch's, as under JAX's sharding: ``images`` and ``labels``
+are this rank's rows of the global batch (the loader shards both), the
+views' draws are taken for the global batch and cut to those rows, the BN
+statistics cover both views of every rank (``models.norm``), the loss
+contrasts this rank's anchors with every rank's views under the global
+labels (``losses.contrastive.supcon_loss``), and the gradients are
+averaged over the ranks (``train.optim.all_reduce_grads_``).
 """
 
 from __future__ import annotations
@@ -28,8 +37,12 @@ from hairci_torch.eval.features import l2_normalize
 from hairci_torch.losses.contrastive import supcon_loss
 from hairci_torch.models.heads import supcon_head
 from hairci_torch.models.resnet import build_resnet
-from hairci_torch.ssl.base import eval_features, register_recipe
-from hairci_torch.train.optim import make_optimizer
+from hairci_torch.ssl.base import (
+    eval_features,
+    rank_draws,
+    register_recipe,
+)
+from hairci_torch.train.optim import all_reduce_grads_, make_optimizer
 from hairci_torch.train.state import TrainState
 
 # CIFAR-100 statistics, which the reference normalises SupCon's views with
@@ -96,10 +109,11 @@ class SupConRecipe:
     def train_step(self, state: TrainState, images: torch.Tensor,
                    gen: torch.Generator, labels: torch.Tensor
                    ) -> Dict[str, torch.Tensor]:
-        """One step on a uint8 (B, H, W, 3) batch and its (B,) labels on
-        the training device. Returns the loss as a device tensor."""
-        B, H, W, _ = images.shape
-        v0, v1 = self.transform.apply(images, self.draw(gen, B, H, W)["views"])
+        """One step on a uint8 (b, H, W, 3) batch and its (b,) labels on
+        the training device (this rank's rows under data parallelism).
+        Returns the loss as a device tensor."""
+        v0, v1 = self.transform.apply(
+            images, rank_draws(self.draw, gen, images)["views"])
         return self.step_on_views(state, v0, v1, labels)
 
     def step_on_views(self, state: TrainState, v0: torch.Tensor,
@@ -112,6 +126,7 @@ class SupConRecipe:
         loss = supcon_loss(torch.stack([f1, f2], dim=1), labels,
                            self.temperature)
         loss.backward()
+        all_reduce_grads_(state.optimizer)
         state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach()}

@@ -20,11 +20,11 @@ DINOv2's centres and DenseCL's banks too.
 Data parallelism (``parallel``): the Trainer runs on a ``(data, model)``
 mesh of the process group's ranks (``create_mesh`` from
 ``--n_model_shards`` unless one is given) and points the collectives at its
-``data`` axis. The loader hands each rank its rows of the global batch;
-the steps of SHAM and SimCLR on a ResNet are the global batch's, with the
-same metrics on every rank, and only rank 0 writes the logs and
-checkpoints. Every rank restores the same checkpoint, whatever world size
-wrote it.
+``data`` axis. The loader hands each rank its rows of the global batch,
+and their labels; every recipe's step (SHAM v1's among them) is the global
+batch's, with the same metrics on every rank, and only rank 0 writes the
+logs and checkpoints. Every rank restores the same checkpoint, whatever
+world size wrote it.
 """
 
 from __future__ import annotations

@@ -28,7 +28,8 @@ The CLI: ``mainpretrain --mode simclr`` on a 16-image manifest, one step of
 the global batch, run with two processes and with one (loss at rtol 3e-4,
 update at rtol 2e-3, as ``tests/test_multiprocess.py``); then each
 checkpoint resumed at the other world size for one more step, held against
-a one-process resume of the one-process checkpoint. One spawn of two gloo
+a one-process resume of the one-process checkpoint; every mode taken under
+``--num_processes 2``, and a batch the ranks do not divide refused. One spawn of two gloo
 processes computes every two-rank case; the JAX steps and the one-process
 runs are computed in this process meanwhile.
 """
@@ -52,6 +53,7 @@ from hairci_torch.models.convert import (
 from hairci_torch.parallel import collectives
 from hairci_torch.ssl.sham import SHAMRecipe
 from hairci_torch.ssl.simclr import SimCLRRecipe
+from hairci_torch.utils.config import parse_pretrain_args
 
 torch.set_num_threads(1)
 B, S, RAW, W = 16, 32, 48, 2
@@ -427,24 +429,29 @@ def test_cli_checkpoint_restores_across_world_sizes(runs, resumed):
         rtol=2e-3)
 
 
+@pytest.mark.parametrize("mode", mainpretrain.PORTED_MODES)
+def test_cli_takes_every_mode_on_several_processes(mode):
+    """Every mode's step is the global batch's: none is refused under
+    --num_processes 2 (the check runs before the rendezvous)."""
+    args = parse_pretrain_args(CLI_FLAGS + [
+        "--mode", mode, "--num_processes", "2", "--process_index", "0",
+        "--coordinator", "localhost:1"])
+    mainpretrain.check_data_parallel(args)
+    assert not collectives.active()
+
+
 @pytest.mark.parametrize("flags,says", [
-    (["--mode", "mae"], "--mode mae has no data-parallel step"),
-    (["--mode", "BYOL"], "--mode BYOL has no data-parallel step"),
-    (["--mode", "MSN"], "--mode MSN has no data-parallel step"),
     (["--batch_size", "15"], "W=2"),
 ])
 def test_cli_refuses_what_is_not_global(dataset, tmp_path, flags, says):
-    """Under --num_processes 2 a mode or option whose step is not yet the
-    global batch's, or a batch the ranks do not divide, exits before the
-    rendezvous, naming the gap."""
+    """Under --num_processes 2 a batch the ranks do not divide exits before
+    the rendezvous, naming W."""
     with pytest.raises(SystemExit) as e:
         mainpretrain.main(CLI_FLAGS + dataset + flags + [
             "--epochs", "1", "--save_path", str(tmp_path),
             "--num_processes", "2", "--process_index", "0",
             "--coordinator", "localhost:1"])
     assert says in str(e.value)
-    if flags[0] != "--batch_size":
-        assert "ROADMAP" in str(e.value)
     assert not collectives.active()
 
 

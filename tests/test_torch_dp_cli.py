@@ -1,6 +1,7 @@
 """``mainpretrain --num_processes 2`` for the recipes whose steps became the
 global batch's after SHAM's and SimCLR's ResNet steps: ``--mode dinov2``,
-``--mode siameseim`` and ``--mode simclr --S2R2``, each one step of the
+``--mode siameseim``, ``--mode simclr --S2R2`` and ``--mode BYOL``, each
+one step of the
 global batch of 16 on ``tests/test_torch_dp.py``'s 16-image manifest, run
 with two gloo processes and with one: the loss at rtol 3e-4 and the
 update's norm at rtol 2e-3, as ``tests/test_multiprocess.py`` holds them.
@@ -12,9 +13,12 @@ The ViTs are cut to patch 16, width 64, depth 2, 2 heads at 32 px; DINOv2
 takes two 16-px local views, 64 prototypes and ``koleo_weight`` 0
 (KoLeo's nearest neighbour at DINOv2's init is rounding noise: the cls
 rows nearly tie, so the two runs' KoLeo terms part by far more than the
-tolerance); SiameseIM a 64-wide decoder of 1 + 2 blocks. One spawn of two
-gloo processes runs the three two-process runs; the one-process runs are
-computed in this process meanwhile.
+tolerance); SiameseIM a 64-wide decoder of 1 + 2 blocks. BYOL trains
+ResNet-18 (its CLI mode builds ResNet-50 whatever ``--model`` says) with
+the full 4096-wide heads at 32 px, the momentum branch and the heads' BNs
+over the global batch. One spawn of two gloo processes runs the four
+two-process runs; the one-process runs are computed in this process
+meanwhile.
 """
 
 import functools
@@ -39,16 +43,18 @@ from test_torch_dp import (  # noqa: F401 (dataset is a fixture)
 torch.set_num_threads(1)
 CLI_MODES = {"dinov2": ["--mode", "dinov2"],
              "siameseim": ["--mode", "siameseim"],
-             "S2R2": ["--S2R2"]}
+             "S2R2": ["--S2R2"],
+             "BYOL": ["--mode", "BYOL"]}
 TINY_VIT = (16, 64, 2, 2)         # patch, width, depth, heads
 
 
 def _cut_vit_recipes(setitem):
     """DINOv2's ViT-S/16 and SiameseIM's ViT-B/16 cut for the CPU, with
-    small heads (``setitem``: a monkeypatch's, or a plain one in a spawned
-    rank)."""
+    small heads, and BYOL on ResNet-18 (``setitem``: a monkeypatch's, or a
+    plain one in a spawned rank)."""
     from hairci_torch.models import vit
     from hairci_torch.ssl import RECIPES
+    from hairci_torch.ssl.byol import BYOLRecipe
     from hairci_torch.ssl.dinov2 import DINOv2Recipe
     from hairci_torch.ssl.siameseim import SiameseIMRecipe
 
@@ -60,6 +66,8 @@ def _cut_vit_recipes(setitem):
     setitem(RECIPES, "siameseim", functools.partial(
         SiameseIMRecipe, decoder_dim=64, decoder_num_heads=4,
         projector_depth=1, predictor_depth=2))
+    setitem(RECIPES, "BYOL", functools.partial(BYOLRecipe,
+                                               backbone="resnet18"))
 
 
 def _worker(rank, ports, out_dir, flags):
