@@ -5097,15 +5097,15 @@ def _dp_profile(rec, state, step, x) -> dict:
     the card's busy time (the union of its kernels' and copies' intervals:
     NCCL runs on a stream of its own), the NCCL kernels' time, and the
     card's idle share of the wall time. The traced steps carry the
-    profiler's own host cost."""
+    profiler's own host cost, and the spans' (``utils.profiling.span``)."""
     import torch
 
-    from hairci_torch.utils.profiling import annotate
+    from hairci_torch.utils import profiling
 
     draw = rec.draw
 
     def traced_draw(*args, **kw):
-        with annotate("dp_draw"):
+        with profiling.span("dp_draw"):
             return draw(*args, **kw)
 
     rec.draw = traced_draw
@@ -5122,9 +5122,12 @@ def _dp_profile(rec, state, step, x) -> dict:
                 walls.append((time.perf_counter() - t0) * 1e3)
     finally:
         del rec.draw   # the class's method again
+        # the program's spans (dp_draw, sham.*) are ranges, not device work
+        named = {s["name"] for s in profiling.spans()}
+        profiling.clear()
     spans, nccl_us, draw_us = [], 0.0, 0.0
     for e in prof.events():
-        if getattr(e, "is_user_annotation", False) or e.name == "dp_draw":
+        if getattr(e, "is_user_annotation", False) or e.name in named:
             if e.device_type == torch.autograd.DeviceType.CPU \
                     and e.name == "dp_draw":
                 draw_us += e.time_range.elapsed_us()

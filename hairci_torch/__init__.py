@@ -32,7 +32,9 @@ SimCLR and SupCon, the masked-image recipes MAE and SimMIM, and evaluation.
   train/      TrainState, optimizer, Trainer, checkpoints
   cli/        retrieval, face_retrieval, mainpretrain, knn_classification
   serve/      the HTTP API, the demo and the result visualizer
-  utils/      device resolution, flags and YAML, seeding, profiling
+  utils/      device resolution, flags and YAML, seeding, profiling, and
+              the hot path's spans (``profiling.span``; on only while a
+              profiler runs, read by ``profiling.spans()``)
 """
 
 __version__ = "0.1.0"

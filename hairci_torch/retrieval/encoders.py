@@ -35,6 +35,7 @@ from hairci_torch.models.face_vit import build_vit_face
 from hairci_torch.models.vit import build_vit
 from hairci_torch.retrieval.index import GalleryIndex
 from hairci_torch.utils.device import DeviceLike, resolve_device
+from hairci_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -103,9 +104,13 @@ class _EncoderBase:
     @torch.no_grad()
     def extract_features(self, images: np.ndarray) -> np.ndarray:
         """(B, S, S, 3) uint8 -> (B, D) f32 L2-normalised features."""
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        out = l2_normalize(self._embed_fn(x).float())
-        return out.cpu().numpy()
+        q, dev = len(images), self.device
+        with span("embed.copy_in", q, dev):
+            x = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
+        with span("embed.forward", q, dev):
+            out = l2_normalize(self._embed_fn(x).float())
+        with span("embed.copy_out", q, dev):
+            return out.cpu().numpy()
 
     # -- reference public API -------------------------------------------
     def extract_dataset_features(self, dataset_path: str, output_dir: str

@@ -28,6 +28,7 @@ from hairci_torch.eval.features import l2_normalize
 from hairci_torch.eval.knn import full_f32_matmul
 from hairci_torch.ops.topk import topk_gallery_search
 from hairci_torch.utils.device import DeviceLike, resolve_device
+from hairci_torch.utils.profiling import span
 
 KERNEL_MAX_K = 8
 
@@ -73,33 +74,36 @@ class GalleryIndex:
     def search(self, queries: np.ndarray, k: int = 5,
                normalized: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """(scores (Q, k) cosine sim desc, indices (Q, k) int64)."""
-        q = torch.as_tensor(np.asarray(queries, np.float32),
-                            device=self.device)
-        if q.dim() == 1:
-            q = q[None]
-        if not normalized:
-            q = l2_normalize(q)
-        q = q.contiguous()
-        n = len(self)
-        k = min(k, n)
-        if self.use_kernel and k <= KERNEL_MAX_K:
-            s, i = topk_gallery_search(q, self.embeddings, k=k)
-            return s.cpu().numpy(), i.cpu().numpy()
-        scores = indices = None
-        for start in range(0, n, self.chunk):
-            block = self.embeddings[start:min(start + self.chunk, n)]
-            with full_f32_matmul():
-                s = torch.matmul(q, block.float().T)
-            s, i = _stable_topk(s, min(k, block.shape[0]))
-            i = i + start
-            if scores is None:
-                scores, indices = s, i
-            else:
-                # running entries come first, so equal scores keep the
-                # lower gallery index
-                scores, pos = _stable_topk(torch.cat([scores, s], 1), k)
-                indices = torch.gather(torch.cat([indices, i], 1), 1, pos)
-        return scores.cpu().numpy(), indices.cpu().numpy()
+        rows = len(queries) if np.ndim(queries) > 1 else 1
+        with span("search", rows, self.device):
+            q = torch.as_tensor(np.asarray(queries, np.float32),
+                                device=self.device)
+            if q.dim() == 1:
+                q = q[None]
+            if not normalized:
+                q = l2_normalize(q)
+            q = q.contiguous()
+            n = len(self)
+            k = min(k, n)
+            if self.use_kernel and k <= KERNEL_MAX_K:
+                s, i = topk_gallery_search(q, self.embeddings, k=k)
+                return s.cpu().numpy(), i.cpu().numpy()
+            scores = indices = None
+            for start in range(0, n, self.chunk):
+                block = self.embeddings[start:min(start + self.chunk, n)]
+                with full_f32_matmul():
+                    s = torch.matmul(q, block.float().T)
+                s, i = _stable_topk(s, min(k, block.shape[0]))
+                i = i + start
+                if scores is None:
+                    scores, indices = s, i
+                else:
+                    # running entries come first, so equal scores keep the
+                    # lower gallery index
+                    scores, pos = _stable_topk(torch.cat([scores, s], 1), k)
+                    indices = torch.gather(torch.cat([indices, i], 1),
+                                           1, pos)
+            return scores.cpu().numpy(), indices.cpu().numpy()
 
     def search_paths(self, queries: np.ndarray, k: int = 5
                      ) -> Tuple[np.ndarray, List[List[str]]]:

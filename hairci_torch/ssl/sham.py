@@ -24,6 +24,10 @@ three gradient-carrying passes keep every block's attention matrices).
 The port updates the state in place. ``train_step`` draws every random
 parameter of the step from one CPU generator (``draw``) and hands them to
 ``step_on_views``, so a test can feed JAX's views and draws instead.
+While a profiler runs, the step's phases are spans
+(``hairci_torch.utils.profiling.span``): ``sham.step`` holds
+``sham.augment``, ``sham.update``, ``sham.forward`` and ``sham.backward``,
+each entered where the code's order puts its work.
 
 Under data parallelism (a process group, ``parallel.collectives``) the step
 is the global batch's, as under JAX's sharding. ``images`` are this rank's
@@ -86,6 +90,7 @@ from hairci_torch.train.optim import (
     make_optimizer,
 )
 from hairci_torch.train.state import TrainState, ema_update
+from hairci_torch.utils.profiling import span
 
 _PROJ_DIMS = {
     "resnet18": (512, 512, 128),
@@ -225,16 +230,21 @@ class SHAMRecipe:
         (this rank's rows under data parallelism). Returns the step's
         metrics as device tensors (no host sync)."""
         b, H, W, _ = images.shape
-        draws = self.draw(gen, b * collectives.world(), H, W)
-        lo = collectives.rank() * b
-        draws = {"views": [shard_draws(v, lo, lo + b)
-                           for v in draws["views"]],
-                 "perm": draws["perm"],   # the global permutation
-                 "positive": shard_draws(draws["positive"], lo, lo + b),
-                 "mask": shard_draws(draws["mask"], lo, lo + b)}
-        x_anchor, x_pos1 = self.transform.apply(images, draws["views"])
-        return self.step_on_views(state, x_anchor, x_pos1, draws, stage,
-                                  batch_id, k)
+        dev = images.device
+        with span("sham.step", b, dev):
+            with span("sham.augment", b, dev):
+                draws = self.draw(gen, b * collectives.world(), H, W)
+                lo = collectives.rank() * b
+                draws = {"views": [shard_draws(v, lo, lo + b)
+                                   for v in draws["views"]],
+                         "perm": draws["perm"],   # the global permutation
+                         "positive": shard_draws(draws["positive"], lo,
+                                                 lo + b),
+                         "mask": shard_draws(draws["mask"], lo, lo + b)}
+                x_anchor, x_pos1 = self.transform.apply(images,
+                                                        draws["views"])
+            return self.step_on_views(state, x_anchor, x_pos1, draws, stage,
+                                      batch_id, k)
 
     def step_on_views(self, state: TrainState, x_anchor: torch.Tensor,
                       x_pos1: torch.Tensor, draws: Dict[str, Any],
@@ -243,63 +253,71 @@ class SHAMRecipe:
         """One step on this rank's views; ``draws["perm"]`` is the global
         batch's, ``positive`` and ``mask`` this rank's rows."""
         online, ema = state.online, state.ema
-        ema_update(ema, online, self.ema_momentum)  # before the forward
+        b, dev = x_pos1.shape[0], x_pos1.device
+        with span("sham.update", b, dev):
+            ema_update(ema, online, self.ema_momentum)  # before the forward
 
-        if stage == "warmup":
-            neg_idx = derangement(to_device(draws["perm"], x_pos1.device))
-            margin = self.margin_stage1
-        elif stage == "mine":
+        with span("sham.forward", b, dev):
+            if stage == "warmup":
+                neg_idx = derangement(to_device(draws["perm"], dev))
+                margin = self.margin_stage1
+            elif stage == "mine":
+                with torch.no_grad():
+                    feats = ema.extract_features(x_pos1)
+                neg_idx = kth_neighbor_indices(collectives.all_gather(feats),
+                                               k)
+                state.neg_indices[batch_id] = neg_idx
+                margin = self.margin_stage2
+            elif stage == "mined":
+                neg_idx = state.neg_indices[batch_id]
+                margin = self.margin_stage2
+            else:
+                raise ValueError(f"unknown stage {stage!r}")
+
+            # this rank's rows of the global negatives, taken from every
+            # rank's pos1 views
+            lo = collectives.rank() * b
+            negative = collectives.all_gather(x_pos1)[neg_idx[lo:lo + b]]
+        with span("sham.augment", b, dev):
+            pos = (x_pos1 if self.ablation == "No_pos_transform"
+                   else positive_transform(x_pos1, draws["positive"]))
+            masked_pos = (pos if self.ablation == "No masked positive"
+                          else positive_masking_transform(pos, draws["mask"]))
+
+        with span("sham.forward", b, dev):
+            online.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            out = online(torch.cat([negative, pos, x_anchor]))
             with torch.no_grad():
-                feats = ema.extract_features(x_pos1)
-            neg_idx = kth_neighbor_indices(collectives.all_gather(feats), k)
-            state.neg_indices[batch_id] = neg_idx
-            margin = self.margin_stage2
-        elif stage == "mined":
-            neg_idx = state.neg_indices[batch_id]
-            margin = self.margin_stage2
-        else:
-            raise ValueError(f"unknown stage {stage!r}")
+                masked_b = l2_normalize(ema(masked_pos))
+            neg_b, pos_b, anchor_b = (l2_normalize(t) for t in out.chunk(3))
 
-        # this rank's rows of the global negatives, taken from every rank's
-        # pos1 views
-        b = x_pos1.shape[0]
-        lo = collectives.rank() * b
-        negative = collectives.all_gather(x_pos1)[neg_idx[lo:lo + b]]
-        pos = (x_pos1 if self.ablation == "No_pos_transform"
-               else positive_transform(x_pos1, draws["positive"]))
-        masked_pos = (pos if self.ablation == "No masked positive"
-                      else positive_masking_transform(pos, draws["mask"]))
+            contrastive = nt_xent_loss(pos_b, anchor_b, self.temperature)
+            triplet = triplet_margin_loss(anchor_b, pos_b, neg_b, margin)
+            mse = collectives.global_mean(torch.square(pos_b - masked_b))
+            if self.ablation == "No_Triplet":
+                total = contrastive + self.mse_w * mse
+            elif self.ablation == "No_MSE":
+                total = contrastive + self.triplet_w * triplet
+            else:
+                total = (contrastive + self.triplet_w * triplet
+                         + self.mse_w * mse)
+            if self.s2r2_weight > 0:
+                total = total + self.s2r2_weight * s2r2_loss(
+                    torch.cat([anchor_b, pos_b, neg_b]), tau=0.01, k_views=3)
+        with span("sham.backward", b, dev):
+            total.backward()
+        with span("sham.update", b, dev):
+            all_reduce_grads_(state.optimizer)
+            # parameters without a gradient (the ViT's fixed position table
+            # and unused mask token) still decay, as under optax
+            fill_missing_grads_(state.optimizer)
+            clip_grad_global_norm_(online.parameters(), 1.0)
+            state.optimizer.step()
+            state.step += 1
 
-        online.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        out = online(torch.cat([negative, pos, x_anchor]))
-        with torch.no_grad():
-            masked_b = l2_normalize(ema(masked_pos))
-        neg_b, pos_b, anchor_b = (l2_normalize(t) for t in out.chunk(3))
-
-        contrastive = nt_xent_loss(pos_b, anchor_b, self.temperature)
-        triplet = triplet_margin_loss(anchor_b, pos_b, neg_b, margin)
-        mse = collectives.global_mean(torch.square(pos_b - masked_b))
-        if self.ablation == "No_Triplet":
-            total = contrastive + self.mse_w * mse
-        elif self.ablation == "No_MSE":
-            total = contrastive + self.triplet_w * triplet
-        else:
-            total = contrastive + self.triplet_w * triplet + self.mse_w * mse
-        if self.s2r2_weight > 0:
-            total = total + self.s2r2_weight * s2r2_loss(
-                torch.cat([anchor_b, pos_b, neg_b]), tau=0.01, k_views=3)
-        total.backward()
-        all_reduce_grads_(state.optimizer)
-        # parameters without a gradient (the ViT's fixed position table and
-        # unused mask token) still decay, as under optax
-        fill_missing_grads_(state.optimizer)
-        clip_grad_global_norm_(online.parameters(), 1.0)
-        state.optimizer.step()
-        state.step += 1
-
-        pos_d, neg_d, violations = margin_violation_stats(
-            anchor_b.detach(), pos_b.detach(), neg_b.detach(), margin)
+            pos_d, neg_d, violations = margin_violation_stats(
+                anchor_b.detach(), pos_b.detach(), neg_b.detach(), margin)
         return {
             "loss": total.detach(),
             "contrastive_loss": contrastive.detach(),

@@ -1,7 +1,7 @@
 """``hairci_torch.utils.seeding`` and ``hairci_torch.utils.profiling``
 against their JAX counterparts' behaviour: ``set_seed`` seeds python, numpy
 and torch and returns a seeded generator; ``trace`` writes a Chrome trace
-holding the ``annotate``d region; ``StepTimer`` keeps the steps after its
+holding the region a ``span`` names; ``StepTimer`` keeps the steps after its
 warmup, with the JAX timer's mean and p50."""
 
 import json
@@ -36,7 +36,7 @@ def test_set_seed_seeds_every_generator():
 
 def test_trace_writes_the_annotated_region(tmp_path):
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("hairci_step"):
+        with profiling.span("hairci_step"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())
     names = {e.get("name") for e in events["traceEvents"]}
