@@ -47,6 +47,19 @@ Phases, in order; any failure raises and exits non-zero:
                 56, 64) f32 (its EMA teacher, the fma kernel), bn_stats at
                 the 56 f32 BN inputs of its student at B=32, the top-k at
                 103,945 x 256 f32 at Q = 1 (fma) and 256 (mma).
+  3b. bn-apply -- the fused BatchNorm apply and its backward
+                (ops/bn_apply.py): the module's output and running stats
+                bit for bit against the formula it replaced (train and eval,
+                with no epilogue, ReLU, residual add and ReLU; bf16 and
+                f32; on and off the 16-byte path), its backward the same
+                bits twice; each kernel against its twin on the card (the
+                apply and the input gradient bit for bit) and timed at the
+                53 trunk BN inputs of one ResNet-50 SHAM forward at 768
+                rows (bf16) and of DualViewHair's student at 32 (f32),
+                beside its bound, its twin and F.batch_norm + relu; a
+                ResNet-50 SHAM step in each stage at B=64 must launch 53
+                train-mode and 53 eval-mode applies (106 in mine) and 53 of
+                each backward kernel, and phase 6's run 53 of each a step.
   4. serve   -- a full-width ViT-B/16 HairEncoder (bf16, seeded random
                 weights) behind ``hairci_torch.serve.api.serve``: index the
                 repo's images, answer /health, /search, /embed, /reload, then
@@ -302,6 +315,8 @@ The last four lines are the card's name and power limit again, the serving
 numbers of phases 4d and 4e as one JSON object, the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
+With ``--bn-apply`` it runs phases 1, 2 and 3b only.
+
 With ``--kernel-times [DIR]`` it only times the bn_stats, Conv2d, top-k and
 rotate wrappers of the ``hairci_torch`` package under DIR (see
 ``kernel_times``).
@@ -341,7 +356,7 @@ FACE_WIDTH = 512         # ViT_face / ViTs_face embedding width
 SEED = 0
 TRAIN_BATCH = 64         # the SHAM step's batch on one card (config: 256)
 SIZE = 224
-KERNELS = ("topk", "rotate", "bn_stats", "conv3x3")
+KERNELS = ("topk", "rotate", "bn_stats", "conv3x3", "bn_apply")
 KNN_BATCH = 64           # the embed batch of the full-width kNN phases
 DV_BATCH = 32            # DualViewHair's CLI default batch
 DV_WIDTH = 256           # DualViewHair's embedding width
@@ -507,6 +522,9 @@ def phase_build() -> None:
 # csrc/topk.cu's batched route for an f32 and a bf16 gallery)
 OCCUPANCY_OF = {"conv3x3_mma_kernel": (256, 155648),
                 "bn_stats_kernel": (256, 0),
+                "bn_apply_kernel": (256, 0),
+                "bn_grad_sums_kernel": (256, 0),
+                "bn_grad_input_kernel": (256, 0),
                 "topk_tc_kernelIf": (256, 206848),
                 "topk_tc_kernelIt": (256, 178176)}
 
@@ -1449,6 +1467,284 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the fused BatchNorm apply and its backward
+# ---------------------------------------------------------------------------
+
+def resnet50_bn_epilogues(rows: int, size: int) -> list:
+    """(M, C, epilogue, count) of the 53 trunk BNs of a ResNet-50 forward
+    over ``rows`` images of ``size`` px: the stem's and a block's first two
+    take the ReLU ("relu"), a block's last the residual add and the ReLU
+    ("residual_relu"), a projection's neither ("none")."""
+    out, hw = [(rows * (size // 2) ** 2, 64, "relu")], size // 4
+    for i, blocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2 ** i
+        for j in range(blocks):
+            out.append((rows * hw * hw, f, "relu"))
+            if i > 0 and j == 0:
+                hw //= 2
+            out += [(rows * hw * hw, f, "relu"),
+                    (rows * hw * hw, 4 * f, "residual_relu")]
+            if j == 0:
+                out.append((rows * hw * hw, 4 * f, "none"))
+    counts = {}
+    for key in out:
+        counts[key] = counts.get(key, 0) + 1
+    return [(m, c, e, n) for (m, c, e), n in counts.items()]
+
+
+def _bn_formula(x2, bn, residual, relu):
+    """``models/norm.py``'s non-centred BatchNorm as it was written before
+    the fused apply (the statistics from the same bn_stats kernel), then the
+    block's ``residual + y`` and ReLU, on an (M, C) input, without touching
+    ``bn``'s running statistics: what the fused path's bits are held to."""
+    import torch
+
+    from hairci_torch.ops.bn_stats import bn_stats
+
+    if bn.training:
+        s, sq = bn_stats(x2)
+        n = s.new_full((1,), x2.shape[0])
+        mean = s / n
+        var = sq / n - mean * mean
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    w = torch.reciprocal(torch.sqrt(var + bn.eps)) * bn.weight
+    y = (x2.float() * w + (-mean * w + bn.bias)).to(bn.dtype)
+    if residual is not None:
+        y = residual + y
+    return torch.relu(y) if relu else y
+
+
+def bn_apply_counts() -> dict:
+    """The fused BatchNorm kernels' launches: the apply's by BN mode, and
+    the backward's two."""
+    from hairci_torch.ops import bn_apply
+
+    return {"train": bn_apply.bn_apply.modes["train"],
+            "eval": bn_apply.bn_apply.modes["eval"],
+            "grad_sums": bn_apply.bn_grad_sums.launches,
+            "grad_input": bn_apply.bn_grad_input.launches}
+
+
+def _bn_apply_shapes(shapes, dtype, gen, problems: list, dev) -> dict:
+    """Checks and times of the three kernels at ``shapes`` ((M, C,
+    epilogue, count)), summed over the counts: each kernel's card and host
+    ms, its bound (the bytes its function must move, once each, at 3.35
+    TB/s), the twins' ms and ``F.batch_norm`` + ReLU's (the one-PyTorch-call
+    yardstick the port never calls). Mismatches go to ``problems``."""
+    import torch
+    import torch.nn.functional as F
+
+    from hairci_torch.ops import bn_apply as ba
+
+    elem = torch.empty(0, dtype=dtype).element_size()
+    tot = {k: 0.0 for k in ("apply", "apply_host", "apply_bound",
+                            "apply_twin", "grad", "grad_host", "grad_bound",
+                            "grad_twin", "library")}
+    for m, c, epi, n in shapes:
+        x = (torch.randn(m, c, device=dev, generator=gen) * 2 + 1).to(dtype)
+        w = torch.rand(c, device=dev, generator=gen) + 0.5
+        b = torch.randn(c, device=dev, generator=gen) * 0.3
+        res = (torch.randn(m, c, device=dev, generator=gen).to(dtype)
+               if epi == "residual_relu" else None)
+        relu = epi != "none"
+        y = ba.bn_apply(x, w, b, res, relu)
+        if not torch.equal(y, ba.bn_apply_reference(x, w, b, res, relu)):
+            problems.append(f"bn_apply ({m}, {c}) {epi} differs from its twin")
+        dy = torch.randn(m, c, device=dev, generator=gen).to(dtype)
+        out = y if relu else None
+        sums = ba.bn_grad_sums(dy, out, x)
+        ref = ba.bn_grad_sums_reference(dy, out, x)
+        for got, want in zip(sums, ref):
+            scale = float(want.abs().max()) + 1.0
+            if float((got - want).abs().max()) > 1e-5 * scale * m ** 0.5:
+                problems.append(f"bn_grad_sums ({m}, {c}) {epi}: max |err| "
+                                f"{float((got - want).abs().max()):.3g}")
+        again = ba.bn_grad_sums(dy, out, x)
+        if not all(torch.equal(a, b2) for a, b2 in zip(sums, again)):
+            problems.append(f"bn_grad_sums ({m}, {c}) differs run to run")
+        g_s = torch.randn(c, device=dev, generator=gen) * 1e-3
+        g_sq = torch.randn(c, device=dev, generator=gen) * 1e-3
+        dx, dres = ba.bn_grad_input(dy, out, x, w, g_s, g_sq, res is not None)
+        rdx, rres = ba.bn_grad_input_reference(dy, out, x, w, g_s, g_sq,
+                                               res is not None)
+        if not torch.equal(dx, rdx) or (res is not None
+                                        and not torch.equal(dres, rres)):
+            bad = float((dx.float() - rdx.float()).abs().max())
+            problems.append(f"bn_grad_input ({m}, {c}) {epi} differs from its "
+                            f"twin: max |err| {bad:.3g}")
+        ak, ah = _kernel_times(lambda: ba.bn_apply(x, w, b, res, relu))
+        sk, sh = _kernel_times(lambda: ba.bn_grad_sums(dy, out, x))
+        ik, ih = _kernel_times(lambda: ba.bn_grad_input(
+            dy, out, x, w, g_s, g_sq, res is not None))
+        at = _median_ms(lambda: ba.bn_apply_reference(x, w, b, res, relu),
+                        runs=10, warmup=2)
+        gt = _median_ms(lambda: (ba.bn_grad_sums_reference(dy, out, x),
+                                 ba.bn_grad_input_reference(
+                                     dy, out, x, w, g_s, g_sq,
+                                     res is not None)), runs=10, warmup=2)
+        # (1, C, M, 1) in channels_last: the layout the trunk's BNs see
+        x4 = x.view(1, m, 1, c).permute(0, 3, 1, 2)
+        rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+        lib = _kernel_times(lambda: F.relu(F.batch_norm(
+            x4, rm, rv, w, b, training=True)))[0]
+        mc = m * c * elem
+        a_bytes = (3 if res is not None else 2) * mc
+        # sums: dy, x (and y); input: dy, x (and y) read, dx (and dres)
+        g_bytes = ((3 if relu else 2) * mc
+                   + (3 if relu else 2) * mc + (2 if res is not None else 1)
+                   * mc)
+        a_bound = a_bytes / HBM_BYTES_PER_S * 1e3
+        g_bound = g_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"bn_apply ({m}, {c}) {str(dtype)[6:]} {epi} x{n}: apply "
+              f"{ak:.4f} ms on the card (bound {a_bound:.4f}, "
+              f"{100 * a_bound / ak:.1f} %), {ah:.4f} on the host; backward "
+              f"{sk:.4f} + {ik:.4f} ms (bound {g_bound:.4f}, "
+              f"{100 * g_bound / (sk + ik):.1f} %), {sh:.4f} + {ih:.4f} on "
+              f"the host; twins {at:.4f} / {gt:.4f}; F.batch_norm + relu "
+              f"{lib:.4f}")
+        for k, v in (("apply", ak), ("apply_host", ah),
+                     ("apply_bound", a_bound), ("apply_twin", at),
+                     ("grad", sk + ik), ("grad_host", sh + ih),
+                     ("grad_bound", g_bound), ("grad_twin", gt),
+                     ("library", lib)):
+            tot[k] += n * v
+        del x, y, dy, res, dx, dres, rdx, rres, out, x4
+        torch.cuda.empty_cache()
+    return tot
+
+
+def phase_bn_apply() -> dict:
+    """Phase 3b: the fused BatchNorm (``ops/bn_apply.py``) on the card. The
+    module's output and running statistics against the formula it replaced,
+    bit for bit, in train and eval mode with each epilogue, bf16 and f32,
+    at a step shape and at shapes off the 16-byte path; its backward the
+    same bits twice; each kernel against its twin (the apply and the input
+    gradient bit for bit) and timed at the 53 trunk BN inputs of one
+    ResNet-50 SHAM forward at 3B rows (B = 256, bf16) and of DualViewHair's
+    student at 32 rows (f32); then one ResNet-50 SHAM step in each stage at
+    B=64, whose launches must be 53 train-mode and 53 eval-mode applies
+    (106 in ``mine``) and 53 of each backward kernel."""
+    import torch
+
+    from hairci_torch.models.norm import BatchNorm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    problems = []
+    # the module against the formula it replaced, and its backward twice
+    for m, c, dtype in ((3 * 64 * 28 * 28, 128, torch.bfloat16),
+                        (3 * 64 * 7 * 7, 2048, torch.bfloat16),
+                        (32 * 14 * 14, 1024, torch.float32),
+                        (1000, 7, torch.bfloat16), (999, 24, torch.float32)):
+        for epi in ("none", "relu", "residual_relu"):
+            for training in (True, False):
+                bn = BatchNorm(c, dtype=dtype).to(dev).train(training)
+                with torch.no_grad():
+                    bn.weight.copy_(torch.rand(c, device=dev, generator=gen)
+                                    + 0.5)
+                    bn.bias.copy_(torch.randn(c, device=dev, generator=gen))
+                    bn.running_mean.normal_(generator=gen)
+                    bn.running_var.uniform_(0.5, 1.5, generator=gen)
+                x = (torch.randn(m, c, device=dev, generator=gen) * 2
+                     + 1).to(dtype)
+                res = (torch.randn(m, c, device=dev, generator=gen).to(dtype)
+                       if epi == "residual_relu" else None)
+                want = _bn_formula(x, bn, res, epi != "none")
+                if training:
+                    rm = bn.running_mean.clone()
+                before = dict(bn_apply_counts())
+                y = bn(x, residual=res, relu=epi != "none")
+                mode = "train" if training else "eval"
+                if bn_apply_counts()[mode] != before[mode] + 1:
+                    problems.append(f"BatchNorm {mode} made no apply launch")
+                if not torch.equal(y, want):
+                    bad = (y.float() - want.float()).abs().max()
+                    problems.append(f"BatchNorm ({m}, {c}) {dtype} {epi} "
+                                    f"{mode} differs from the old formula: "
+                                    f"max |err| {float(bad):.3g}")
+                if training:
+                    s = x.float().sum(0)
+                    if not torch.allclose(bn.running_mean,
+                                          0.9 * rm + 0.1 * s / m,
+                                          rtol=1e-4, atol=1e-4):
+                        problems.append(f"BatchNorm ({m}, {c}) running mean")
+                    grads = []
+                    for _ in range(2):
+                        xg = x.clone().requires_grad_()
+                        rg = (None if res is None
+                              else res.clone().requires_grad_())
+                        bn.zero_grad()
+                        bn(xg, residual=rg, relu=epi != "none").backward(
+                            torch.ones_like(y) * 1e-2 + y * 1e-3)
+                        grads.append([xg.grad, bn.weight.grad.clone(),
+                                      bn.bias.grad.clone()]
+                                     + ([] if rg is None else [rg.grad]))
+                    if not all(torch.equal(a, b) for a, b in zip(*grads)):
+                        problems.append(f"BatchNorm ({m}, {c}) {dtype} {epi} "
+                                        f"backward differs run to run")
+    print(f"BatchNorm against the formula it replaced (5 shapes x 3 "
+          f"epilogues x train / eval), and its backward run to run: "
+          f"{len(problems)} problems")
+    torch.cuda.empty_cache()
+    rows = 3 * 256
+    step = _bn_apply_shapes(resnet50_bn_epilogues(rows, SIZE),
+                            torch.bfloat16, gen, problems, dev)
+    print(f"bn_apply, the 53 trunk BNs of one ResNet-50 SHAM forward at "
+          f"{rows} rows, bf16, {BACK_TO_BACK} calls back to back per shape: "
+          f"apply {step['apply']:.3f} ms on the card (bound "
+          f"{step['apply_bound']:.3f}, "
+          f"{100 * step['apply_bound'] / step['apply']:.1f} %), "
+          f"{step['apply_host']:.3f} on the host, twin "
+          f"{step['apply_twin']:.3f}; backward {step['grad']:.3f} ms on the "
+          f"card (bound {step['grad_bound']:.3f}, "
+          f"{100 * step['grad_bound'] / step['grad']:.1f} %), "
+          f"{step['grad_host']:.3f} on the host, twins "
+          f"{step['grad_twin']:.3f}; F.batch_norm + relu "
+          f"{step['library']:.3f}")
+    dv = _bn_apply_shapes(resnet50_bn_epilogues(DV_BATCH, SIZE),
+                          torch.float32, gen, problems, dev)
+    print(f"bn_apply, the 53 trunk BNs of one DualViewHair student forward "
+          f"at {DV_BATCH} rows, f32: apply {dv['apply']:.3f} ms on the card "
+          f"(bound {dv['apply_bound']:.3f}), {dv['apply_host']:.3f} on the "
+          f"host, twin {dv['apply_twin']:.3f}; backward {dv['grad']:.3f} ms "
+          f"(bound {dv['grad_bound']:.3f}), {dv['grad_host']:.3f} on the "
+          f"host, twins {dv['grad_twin']:.3f}; F.batch_norm + relu "
+          f"{dv['library']:.3f}")
+    # the launches of one ResNet-50 SHAM step in each stage
+    from hairci_torch.ssl.sham import SHAMRecipe
+
+    rec = SHAMRecipe(backbone="resnet50", img_size=SIZE, num_batches=1,
+                     dtype=torch.bfloat16)
+    state = rec.create_state(SEED, TRAIN_BATCH, dev)
+    images = torch.randint(0, 256, (TRAIN_BATCH, SIZE, SIZE, 3),
+                           dtype=torch.uint8, device=dev, generator=gen)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    launches = {}
+    for stage in ("warmup", "mine", "mined"):
+        before = bn_apply_counts()
+        rec.train_step(state, images, cpu_gen, stage)
+        torch.cuda.synchronize()
+        launches[stage] = {k: v - before[k]
+                           for k, v in bn_apply_counts().items()}
+        want = {"train": 53, "eval": 106 if stage == "mine" else 53,
+                "grad_sums": 53, "grad_input": 53}
+        print(f"SHAM ResNet-50 {stage} step, B={TRAIN_BATCH}, bf16: fused BN "
+              f"launches {launches[stage]}")
+        if launches[stage] != want:
+            problems.append(f"{stage} step: launches {launches[stage]} != "
+                            f"{want}")
+    del state, rec, images
+    torch.cuda.empty_cache()
+    print(json.dumps({"bn_apply": {"step_bf16_768": step,
+                                   "dualview_f32_32": dv,
+                                   "launches": launches}}))
+    if problems:
+        raise AssertionError("phase bn_apply: " + "; ".join(problems))
+    return {"step": step, "dualview": dv, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving slice through its entry point
 # ---------------------------------------------------------------------------
 
@@ -1465,10 +1761,16 @@ def _wrappers() -> dict:
 
 def _reset_counts() -> None:
     """Every kernel's launch count to 0, just before a path is driven."""
+    from hairci_torch.ops import bn_apply
+
     for fn in _wrappers().values():
         fn.launches = 0
         for route in getattr(fn, "routes", {}):
             fn.routes[route] = 0
+    for fn in (bn_apply.bn_apply, bn_apply.bn_grad_sums,
+               bn_apply.bn_grad_input):
+        fn.launches = 0
+    bn_apply.bn_apply.modes.update(train=0, eval=0)
 
 
 def _counts() -> dict:
@@ -2040,6 +2342,15 @@ def phase_train(workdir: str, kern: dict) -> dict:
     if launches["conv3x3"] != 3 * no_grad_forwards:
         raise AssertionError(f"conv3x3 launches {launches['conv3x3']} != 3 x "
                              f"{no_grad_forwards} forwards without gradient")
+    # the trunk's 53 BNs: one fused apply each in every forward (train mode
+    # in the step's, eval mode in the EMA's), one of each backward kernel a
+    # step
+    fused = bn_apply_counts()
+    want = {"train": 53 * steps, "eval": 53 * no_grad_forwards,
+            "grad_sums": 53 * steps, "grad_input": 53 * steps}
+    print(f"fused BatchNorm launches {fused}")
+    if fused != want:
+        raise AssertionError(f"fused BatchNorm launches {fused} != {want}")
 
     with open(os.path.join(trainer.save_path, "metrics.jsonl")) as f:
         metrics = [json.loads(line) for line in f]
@@ -5349,7 +5660,12 @@ def main() -> int:
         return dp_ranks(int(sys.argv[2]), "--profile" in sys.argv[3:])
     device = phase_device()
     phase_build()
+    if sys.argv[1:2] == ["--bn-apply"]:
+        phase_bn_apply()
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     kern = phase_kernels()
+    phase_bn_apply()
     # the index, manifest and run dir are written inside the checkout and
     # removed afterwards
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_",

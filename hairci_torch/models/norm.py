@@ -15,13 +15,23 @@ kernel sums its own rows, and one differentiable all-reduce adds the sums,
 the sums of squares and the row counts of every rank before the mean and
 var are formed, so the running stats agree on every rank.
 ``nn.SyncBatchNorm`` would keep the unbiased var at momentum 0.1.
+
+The non-centred form (the ResNet trunk's) runs as
+``ops.bn_apply.BatchNormApply``: one hand-written pass that normalises and,
+where the block asks (``residual``, ``relu``), adds the residual and takes
+the ReLU, and a two-pass backward; eval mode runs the same apply with the
+running statistics. The centred form (the projection heads') stays plain
+torch over the bn_stats sums.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from hairci_torch.ops.bn_apply import BatchNormApply
 from hairci_torch.ops.bn_stats import BNStats
 from hairci_torch.parallel import collectives
 
@@ -52,12 +62,35 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
+        """The normalised ``x``; with ``residual`` (x's shape) then
+        ``residual + y``, and with ``relu`` then ``relu(.)``: the end of a
+        ResNet block, in the non-centred form only."""
         c = self.weight.shape[0]
         nhwc = x.permute(0, 2, 3, 1) if x.dim() == 4 else x
-        x2 = nhwc.reshape(-1, c)
+        x2 = nhwc.reshape(-1, c).contiguous()
+        if self.centered:
+            if residual is not None or relu:
+                raise ValueError("BatchNorm: the residual add and the ReLU "
+                                 "are fused in the non-centred form only")
+            y = self._centered(x2)
+        else:
+            if residual is not None:
+                residual = (residual.permute(0, 2, 3, 1) if residual.dim() == 4
+                            else residual).reshape(-1, c).contiguous()
+            y = BatchNormApply.apply(
+                x2, self.weight, self.bias, residual, self.running_mean,
+                self.running_var, self.training, self.momentum, self.eps,
+                self.dtype, relu)
+        y = y.reshape(nhwc.shape)
+        return y.permute(0, 3, 1, 2) if x.dim() == 4 else y
+
+    def _centered(self, x2: torch.Tensor) -> torch.Tensor:
+        """``(x - mean) * w + bias`` of an (M, C) input, cast to ``dtype``."""
         if self.training:
-            s, sq = BNStats.apply(x2.contiguous())
+            c = self.weight.shape[0]
+            s, sq = BNStats.apply(x2)
             # the row count as a device tensor with or without a process
             # group, so that both divide alike (a division by a host scalar
             # may round otherwise on a card)
@@ -66,23 +99,15 @@ class BatchNorm(nn.Module):
                 tot = collectives.all_reduce_sum(torch.cat([s, sq, n]))
                 s, sq, n = tot[:c], tot[c:2 * c], tot[2 * c:].detach()
             mean = s / n
-            var = sq / n - mean * mean
-            if self.centered:
-                var = torch.clamp(var, min=0.0)
+            var = torch.clamp(sq / n - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        if self.centered:
-            w = torch.rsqrt(var + self.eps) * self.weight
-            y = (x2.float() - mean) * w + self.bias
-        else:
-            w = torch.reciprocal(torch.sqrt(var + self.eps)) * self.weight
-            y = x2.float() * w + (-mean * w + self.bias)
-        y = y.to(self.dtype).reshape(nhwc.shape)
-        return y.permute(0, 3, 1, 2) if x.dim() == 4 else y
+        w = torch.rsqrt(var + self.eps) * self.weight
+        return ((x2.float() - mean) * w + self.bias).to(self.dtype)
 
     def extra_repr(self) -> str:
         return (f"{self.weight.shape[0]}, momentum={self.momentum}, "

@@ -10,6 +10,10 @@ f32 then rounded to ``dtype``. ``ResNetFeatures`` (``build_resnet(...,
 with_spatial=True)``, DenseCL's trunk) returns ``(pooled, spatial)``: the
 last stage's map as NHWC f32 and its f32 mean, not rounded.
 
+A block's BatchNorms take its ReLUs, and its last one the residual add
+before the ReLU (``models.norm.BatchNorm``'s ``residual`` and ``relu``): one
+hand-written pass on a card, the plain ops' twin on the CPU.
+
 The public boundary is NHWC, as in JAX. Inside, the convs run on
 ``channels_last`` NCHW tensors: the boundary's NHWC becomes a free
 ``permute``, and the BatchNorm's ``(N*H*W, C)`` view stays contiguous.
@@ -104,10 +108,10 @@ class BasicBlock(nn.Module):
                 BatchNorm(filters, dtype=dtype))
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = self.bn1(self.conv1(x), relu=True)
+        y = self.conv2(y)
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(residual + y)
+        return self.bn2(y, residual=residual, relu=True)
 
 
 class BottleneckBlock(nn.Module):
@@ -129,11 +133,11 @@ class BottleneckBlock(nn.Module):
                 BatchNorm(out, dtype=dtype))
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = self.bn1(self.conv1(x), relu=True)
+        y = self.bn2(self.conv2(y), relu=True)
+        y = self.conv3(y)
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(residual + y)
+        return self.bn3(y, residual=residual, relu=True)
 
 
 class ResNet(nn.Module):
@@ -167,7 +171,7 @@ class ResNet(nn.Module):
         ``dtype``."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = self.bn1(self.conv1(x), relu=True)
         if self.stem == "imagenet":
             x = F.max_pool2d(x, 3, 2, 1)
         for i in range(self.num_stages):

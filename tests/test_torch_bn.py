@@ -21,7 +21,9 @@ from hairci_torch.ops.bn_stats import (
     plan,
     vector_width,
 )
+from hairci_torch.ops import bn_apply as bn_mod_apply
 from hairci_torch.ops import bn_stats as bn_mod
+from hairci_torch.ops.bn_apply import BatchNormApply
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -282,3 +284,234 @@ def test_cuda_kernel_matches_twin():
     s, _ = bn_stats(x.view(64, 32))
     torch.testing.assert_close(s, x.view(64, 32).sum(0), rtol=1e-5,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the fused apply (ops/bn_apply.py): its twin against the formula it
+# replaced, its Function's gradients against autograd, its calls a step
+# ---------------------------------------------------------------------------
+
+EPILOGUES = ("none", "relu", "residual_relu")
+
+
+def _formula(x2, weight, bias, running_mean, running_var, training,
+             residual=None, relu=False, dtype=torch.float32, momentum=0.9,
+             eps=1e-5, acc=torch.float32):
+    """The non-centred BatchNorm as ``models/norm.py`` wrote it before the
+    fused apply, then the ResNet block's ``residual + y`` and ReLU, on an
+    (M, C) input: differentiable through the sums as ``BNStats`` was, with
+    the running stats updated in place. ``acc`` f64 is the same formula in
+    float64 (f32 is what the port computes in)."""
+    if training:
+        xa = x2.to(acc)
+        s, sq = xa.sum(0), (xa * xa).sum(0)
+        n = s.new_full((1,), x2.shape[0])
+        mean = s / n
+        var = sq / n - mean * mean
+        with torch.no_grad():
+            running_mean.copy_(0.9 * running_mean + (1 - 0.9) * mean)
+            running_var.copy_(0.9 * running_var + (1 - 0.9) * var)
+    else:
+        mean, var = running_mean, running_var
+    w = torch.reciprocal(torch.sqrt(var + eps)) * weight
+    y = (x2.to(acc) * w + (-mean * w + bias)).to(dtype)
+    if residual is not None:
+        y = residual + y
+    return torch.nn.functional.relu(y) if relu else y
+
+
+def _bn_case(dtype, shape, seed=0):
+    """A BatchNorm input, residual, upstream gradient and state."""
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[-1] if len(shape) == 2 else shape[1]
+    x = (torch.randn(shape, generator=gen) * 1.5 + 0.5).to(dtype)
+    res = torch.randn(shape, generator=gen).to(dtype)
+    dy = torch.randn(shape, generator=gen).to(dtype)
+    if len(shape) == 4:
+        x, res, dy = (t.contiguous(memory_format=torch.channels_last)
+                      for t in (x, res, dy))
+    state = {"weight": torch.rand(c, generator=gen) + 0.5,
+             "bias": torch.randn(c, generator=gen) * 0.2,
+             "running_mean": torch.randn(c, generator=gen),
+             "running_var": torch.rand(c, generator=gen) + 0.5}
+    return x, res, dy, state
+
+
+def _rows(t):
+    """The (M, C) view the BatchNorm normalises."""
+    return (t.permute(0, 2, 3, 1) if t.dim() == 4 else t).reshape(
+        -1, t.shape[1] if t.dim() == 4 else t.shape[-1])
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("shape", [(37, 24), (3, 16, 5, 4)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_apply_is_the_formula_it_replaced(dtype, shape, training,
+                                                epilogue):
+    """The module's output and running stats are the old formula's, bit
+    for bit, in every variant."""
+    x, res, _, state = _bn_case(dtype, shape)
+    bn = BatchNorm(state["weight"].numel(), dtype=dtype)
+    bn.load_state_dict(state)
+    bn.train(training)
+    residual = res if epilogue == "residual_relu" else None
+    relu = epilogue != "none"
+    before = bn_mod_apply.bn_apply.twin_calls["train" if training
+                                               else "eval"]
+    y = bn(x, residual=residual, relu=relu)
+    assert bn_mod_apply.bn_apply.twin_calls[
+        "train" if training else "eval"] == before + 1
+    rm, rv = state["running_mean"].clone(), state["running_var"].clone()
+    want = _formula(_rows(x), state["weight"], state["bias"], rm, rv,
+                    training, None if residual is None else _rows(residual),
+                    relu, dtype)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(_rows(y), want)
+    assert torch.equal(bn.running_mean, rm)
+    assert torch.equal(bn.running_var, rv)
+    if len(shape) == 4:
+        assert y.is_contiguous(memory_format=torch.channels_last)
+
+
+def _grads(fn, x, res, dy, weight, bias):
+    """(y, dx, d weight, d bias, d residual) of ``fn`` by autograd."""
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, weight, bias, res)]
+    y = fn(*leaves)
+    y.backward(dy)
+    return (y.detach(),) + tuple(t.grad for t in leaves)
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_gradients_match_autograd_of_the_formula(dtype, training,
+                                                       epilogue):
+    """``BatchNormApply``'s dx, d weight, d bias and d residual against
+    autograd through the old formula. float64: at 1e-10. float32: dx
+    within 1e-6 of its largest entry (it reads 7.9e-8) and the weight's and
+    bias' gradients at 1e-6 (the same sums). The Function forms dx = g w +
+    g_s + 2 x g_sq and rounds once, where autograd rounds g w and the
+    statistics' part apart and adds the two; those parts are each about
+    |g w| and cancel to dx, so an ulp or two of |g w| shows against dx."""
+    x, res, dy, state = _bn_case(dtype, (211, 12), seed=3)
+    res = res if epilogue == "residual_relu" else None
+    relu = epilogue != "none"
+    acc = torch.promote_types(dtype, torch.float32)
+    st = {k: v.to(acc) for k, v in state.items()}
+
+    def fused(x, weight, bias, residual):
+        return BatchNormApply.apply(
+            x, weight, bias, residual, st["running_mean"].clone(),
+            st["running_var"].clone(), training, 0.9, 1e-5, dtype, relu)
+
+    def formula(x, weight, bias, residual):
+        return _formula(x, weight, bias, st["running_mean"].clone(),
+                        st["running_var"].clone(), training, residual, relu,
+                        dtype, acc=acc)
+
+    r0 = torch.zeros_like(x) if res is None else res
+    got = _grads(lambda *a: fused(*a[:3], a[3] if res is not None else None),
+                 x, r0, dy, st["weight"], st["bias"])
+    want = _grads(lambda *a: formula(*a[:3], a[3] if res is not None
+                                     else None),
+                  x, r0, dy, st["weight"], st["bias"])
+    assert torch.equal(got[0], want[0])
+    if res is None:
+        assert got[4] is None and want[4] is None
+    if dtype == torch.float64:
+        for g, w in zip(got[1:], want[1:]):
+            if w is not None:
+                torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10)
+        return
+    dx, wdx = got[1], want[1]
+    assert (dx - wdx).abs().max() <= 1e-6 * wdx.abs().max()
+    for g, w in zip(got[2:], want[2:]):
+        if w is not None:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_fused_wrappers_check_and_count_on_the_cpu():
+    x = torch.randn(10, 4)
+    w, b = torch.rand(4) + 0.5, torch.randn(4)
+    launches = (bn_mod_apply.bn_apply.launches,
+                bn_mod_apply.bn_grad_sums.launches,
+                bn_mod_apply.bn_grad_input.launches)
+    calls = (dict(bn_mod_apply.bn_apply.twin_calls),
+             bn_mod_apply.bn_grad_sums.twin_calls,
+             bn_mod_apply.bn_grad_input.twin_calls)
+    y = bn_mod_apply.bn_apply(x, w, b, relu=True, mode="eval")
+    torch.testing.assert_close(y, torch.relu(x * w + b))
+    A, B = bn_mod_apply.bn_grad_sums(x, y, x)
+    g = torch.where(y > 0, x, torch.zeros_like(x))
+    torch.testing.assert_close(A, g.sum(0))
+    torch.testing.assert_close(B, (g * x).sum(0))
+    dx, dres = bn_mod_apply.bn_grad_input(x, None, x, w, b, b, True)
+    torch.testing.assert_close(dx, x * w + b + 2 * x * b)
+    assert dres is x
+    # the twins are no launches, and each call is counted once
+    assert launches == (bn_mod_apply.bn_apply.launches,
+                        bn_mod_apply.bn_grad_sums.launches,
+                        bn_mod_apply.bn_grad_input.launches)
+    assert bn_mod_apply.bn_apply.twin_calls == {
+        "train": calls[0]["train"], "eval": calls[0]["eval"] + 1}
+    assert bn_mod_apply.bn_grad_sums.twin_calls == calls[1] + 1
+    assert bn_mod_apply.bn_grad_input.twin_calls == calls[2] + 1
+    with pytest.raises(ValueError, match="mode"):
+        bn_mod_apply.bn_apply(x, w, b, mode="test")
+    with pytest.raises(ValueError, match="non-centred"):
+        BatchNorm(4, centered=True)(x, relu=True)
+
+
+@pytest.mark.parametrize("vec", [8, 4, 1])
+@pytest.mark.parametrize("shape", _STEP_SHAPES + [(1000, 7), (3, 64),
+                                                  (100_000, 64), (1, 1),
+                                                  (1568, 2048)])
+def test_elementwise_plan_covers_every_row_once(shape, vec):
+    M, C = shape
+    if C % vec:
+        vec = 1
+    log_tg, splits, rows = bn_mod_apply.elementwise_plan(M, C, vec, 132)
+    tg = 1 << log_tg
+    assert 0 <= log_tg <= 5 and tg * vec <= 256
+    assert 1 <= splits <= 65535 and rows >= 1
+    assert (splits - 1) * rows < M <= splits * rows
+    tiles = -(-(-(-C // vec)) // tg)
+    # about 16 blocks an SM where the rows allow it, and no more splits
+    # than loop turns' worth of rows
+    assert tiles * splits <= 16 * 132 + tiles
+    turn = bn_mod.UNROLL * (bn_mod.THREADS // tg)
+    assert splits <= -(-M // turn)
+
+
+def _counted_sham_step(stage):
+    """One SHAM step of ResNet-50 at 32 px, B=2, on the CPU; the fused
+    BatchNorm twins' calls it made."""
+    from hairci_torch.ssl.sham import SHAMRecipe
+
+    rec = SHAMRecipe(backbone="resnet50", img_size=32, num_batches=1)
+    state = rec.create_state(0, 2, torch.device("cpu"))
+    images = torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(0))
+    state.neg_indices[0] = torch.tensor([1, 0])
+    before = (dict(bn_mod_apply.bn_apply.twin_calls),
+              bn_mod_apply.bn_grad_sums.twin_calls,
+              bn_mod_apply.bn_grad_input.twin_calls)
+    rec.train_step(state, images, torch.Generator().manual_seed(1), stage)
+    apply = bn_mod_apply.bn_apply.twin_calls
+    return {"train": apply["train"] - before[0]["train"],
+            "eval": apply["eval"] - before[0]["eval"],
+            "grad_sums": bn_mod_apply.bn_grad_sums.twin_calls - before[1],
+            "grad_input": bn_mod_apply.bn_grad_input.twin_calls - before[2]}
+
+
+@pytest.mark.parametrize("stage", ["warmup", "mine", "mined"])
+def test_a_resnet50_sham_step_makes_53_of_each_call(stage):
+    """The trunk's 53 BNs: one train-mode apply each in the online forward
+    over 3B rows, one eval-mode apply each in the EMA's forward of the
+    masked positives (and in ``mine`` its forward of the pos1 views), one
+    of each backward kernel; the head's two centred BNs make none."""
+    got = _counted_sham_step(stage)
+    assert got == {"train": 53, "eval": 106 if stage == "mine" else 53,
+                   "grad_sums": 53, "grad_input": 53}

@@ -60,6 +60,20 @@ def _bn_input(r):
     return torch.from_numpy(_x(20 + r, (6, 5, 3, 3)) * 2 + 1)
 
 
+def _bn_residual(r):
+    return torch.from_numpy(_x(70 + r, (6, 5, 3, 3)))
+
+
+def _fused_bn():
+    """A train-mode BatchNorm(5) with a scale and bias away from their
+    init, so that the ReLU's mask and every gradient term show."""
+    bn = BatchNorm(5).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(_x(80, (5,))).abs() + 0.5)
+        bn.bias.copy_(torch.from_numpy(_x(81, (5,))))
+    return bn
+
+
 def _worker(rank, port, out_dir):
     torch.set_num_threads(1)
     collectives.init_distributed(f"localhost:{port}", W, rank)
@@ -119,6 +133,17 @@ def _worker(rank, port, out_dir):
     (y * torch.from_numpy(_x(60 + rank, (6, 5, 3, 3)))).sum().backward()
     out["bn"] = (y.detach(), bn.running_mean.clone(), bn.running_var.clone(),
                  x.grad)
+    # the fused BatchNorm with a block's residual add and ReLU
+    bn = _fused_bn()
+    x = _bn_input(rank).requires_grad_()
+    res = _bn_residual(rank).requires_grad_()
+    collectives.calls.update(all_gather=0, all_reduce=0)
+    y = bn(x, residual=res, relu=True)
+    (y * torch.from_numpy(_x(60 + rank, (6, 5, 3, 3)))).sum().backward()
+    out["bn_fused"] = (y.detach(), bn.running_mean.clone(),
+                       bn.running_var.clone(), x.grad, bn.weight.grad,
+                       bn.bias.grad, res.grad)
+    out["bn_fused_calls"] = dict(collectives.calls)
     torch.save(out, os.path.join(out_dir, f"{rank}.pt"))
     collectives.shutdown()
 
@@ -251,6 +276,40 @@ def test_batchnorm_statistics_are_global(ranks):
                                    rtol=1e-5, atol=1e-5)
     assert torch.equal(ranks[0]["bn"][1], ranks[1]["bn"][1])
     assert torch.equal(ranks[0]["bn"][2], ranks[1]["bn"][2])
+
+
+def test_fused_batchnorm_with_residual_and_relu_is_global(ranks):
+    """Two ranks' fused BatchNorm with the residual add and the ReLU
+    equals one over both ranks' rows: output, running stats, and the input,
+    residual, weight and bias gradients (the ranks' parameter gradients
+    summed, as the gradient mean after the step's backward takes them, W
+    times over); one all-reduce in the forward and one in the backward."""
+    bn = _fused_bn()
+    xs = [_bn_input(r).requires_grad_() for r in range(W)]
+    rs = [_bn_residual(r).requires_grad_() for r in range(W)]
+    y = bn(torch.cat(xs), residual=torch.cat(rs), relu=True)
+    (y * torch.cat([torch.from_numpy(_x(60 + r, (6, 5, 3, 3)))
+                    for r in range(W)])).sum().backward()
+    assert (y == 0).any() and (y > 0).any()
+    for r, out in enumerate(ranks):
+        got_y, mean, var, gx, _, _, gres = out["bn_fused"]
+        np.testing.assert_allclose(got_y.numpy(), y[6 * r:6 * r + 6]
+                                   .detach().numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(mean.numpy(), bn.running_mean.numpy(),
+                                   rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(var.numpy(), bn.running_var.numpy(),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(gx.numpy(), xs[r].grad.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(gres.numpy(), rs[r].grad.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        assert out["bn_fused_calls"] == {"all_gather": 0, "all_reduce": 2}
+    for i, p in ((4, bn.weight), (5, bn.bias)):
+        np.testing.assert_allclose(
+            sum(out["bn_fused"][i] for out in ranks).numpy(),
+            p.grad.numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.equal(ranks[0]["bn_fused"][1], ranks[1]["bn_fused"][1])
+    assert torch.equal(ranks[0]["bn_fused"][2], ranks[1]["bn_fused"][2])
 
 
 def test_no_process_group_leaves_tensors_alone():
